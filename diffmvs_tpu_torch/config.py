@@ -1,0 +1,150 @@
+"""Typed model configuration for DiffMVS / CasDiffMVS (PyTorch port).
+
+Counterpart of diffmvs_tpu/config.py without the TPU layout flags (warp
+kernel selection, s2d layouts, unrolling): the port computes each
+operation once, in NCHW, and the plane-sweep warp always goes through
+ops.correlation.warp_and_correlate.
+
+Per-stage hyperparameters are 3-tuples indexed by stage (stage 0 = 1/8-res
+initialization, stage 1 = 1/4-res refinement, stage 2 = 1/2-res
+refinement; stage_iters[2] == 0 selects the DiffMVS variant).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+Triple = Tuple[float, float, float]
+ITriple = Tuple[int, int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture + diffusion hyperparameters."""
+
+    # depth sampling
+    numdepth_initial: int = 48     # hypotheses for the 1/8-res plane sweep
+    numdepth: int = 384            # 1/numdepth = minimum inverse-depth interval
+
+    # diffusion schedule per stage
+    scale: Triple = (0.0, 0.5, 0.1)            # noise scale
+    timesteps: ITriple = (1000, 1000, 1000)
+    sampling_timesteps: ITriple = (1, 1, 1)    # DDIM steps at inference
+    ddim_eta: Triple = (0.0, 1.0, 1.0)
+
+    # per-stage net dims
+    hidden_dim: ITriple = (0, 32, 20)          # GRU hidden state dims
+    context_dim: ITriple = (32, 32, 16)        # context feature dims
+    unet_dim: ITriple = (0, 16, 8)             # UNet base dims
+    stage_iters: ITriple = (1, 3, 3)           # GRU iterations per stage
+    cost_dim_stage: ITriple = (4, 4, 4)        # correlation groups G per stage
+    cost_num: ITriple = (0, 4, 4)              # depth samples per refinement iter
+
+    # confidence-adaptive hypothesis range
+    min_radius: float = 0.125
+    max_radius: float = 8.0
+
+    # depth interval ratio per stage
+    depth_intervals_ratio: Triple = (4.0, 2.0, 1.0)
+
+    # feature extractor dims
+    base_channels: int = 8
+
+    # compute dtype for the conv stacks; only "float32" runs in this
+    # version of the port (geometry, soft-argmax and the diffusion state
+    # are float32 whatever this says)
+    compute_dtype: str = "float32"
+
+    @property
+    def is_cascade(self) -> bool:
+        """CasDiffMVS iff stage 2 runs refinement iterations."""
+        return self.stage_iters[2] > 0
+
+    @property
+    def up_ratio(self) -> int:
+        """Final convex-upsampling ratio."""
+        return 2 if self.is_cascade else 4
+
+    @property
+    def feat_dim_stage(self) -> ITriple:
+        """FPN output channels per stage."""
+        return (48, 32, 16) if self.is_cascade else (48, 32, 0)
+
+    @property
+    def ctx_out_dim(self) -> ITriple:
+        """ContextNet head dims = hidden + context per stage."""
+        return tuple(h + c for h, c in zip(self.hidden_dim, self.context_dim))
+
+    @property
+    def unet_dim_mults(self):
+        """UNet depth multiplier schedule per stage."""
+        return ((1,), (1, 2), (1, 2, 4))
+
+    def validate(self) -> "ModelConfig":
+        if self.stage_iters[0] < 1 or self.stage_iters[1] < 1:
+            raise ValueError("stages 0 and 1 need at least one iteration")
+        for s in (1, 2):
+            if self.stage_iters[s] > 0 and (
+                    self.cost_num[s] < 1 or self.hidden_dim[s] <= 0
+                    or self.unet_dim[s] <= 0):
+                raise ValueError(f"stage {s} needs cost samples, a hidden "
+                                 f"state and a UNet")
+        return self
+
+
+# ---------------------------------------------------------------------------
+# Canonical presets
+# ---------------------------------------------------------------------------
+
+# DiffMVS: single refinement stage at 1/4 res, upsample x4.
+DIFFMVS = ModelConfig(
+    scale=(0.0, 0.5, 0.0),
+    ddim_eta=(0.0, 1.0, 0.0),
+    hidden_dim=(0, 32, 0),
+    context_dim=(32, 32, 0),
+    unet_dim=(0, 16, 8),
+    stage_iters=(1, 4, 0),
+    cost_dim_stage=(4, 4, 0),
+    cost_num=(0, 6, 0),
+    min_radius=0.25,
+    max_radius=4.0,
+)
+
+# CasDiffMVS: cascade refinement at 1/4 then 1/2 res, upsample x2.
+CASDIFFMVS = ModelConfig(
+    scale=(0.0, 0.5, 0.1),
+    ddim_eta=(0.0, 1.0, 1.0),
+    hidden_dim=(0, 32, 20),
+    context_dim=(32, 32, 16),
+    unet_dim=(0, 16, 8),
+    stage_iters=(1, 3, 3),
+    cost_dim_stage=(4, 4, 4),
+    cost_num=(0, 4, 4),
+    min_radius=0.125,
+    max_radius=8.0,
+)
+
+# BlendedMVS-finetuned noise scales used for T&T / ETH3D eval
+CASDIFFMVS_MVG = dataclasses.replace(CASDIFFMVS, scale=(0.0, 0.125, 0.025))
+DIFFMVS_MVG = dataclasses.replace(DIFFMVS, scale=(0.0, 0.125, 0.0))
+
+# Tanks&Temples uses 96 initial hypotheses
+CASDIFFMVS_TANK = dataclasses.replace(CASDIFFMVS_MVG, numdepth_initial=96)
+DIFFMVS_TANK = dataclasses.replace(DIFFMVS_MVG, numdepth_initial=96)
+
+MODEL_PRESETS = {
+    "diffmvs": DIFFMVS,
+    "casdiffmvs": CASDIFFMVS,
+    "diffmvs_mvg": DIFFMVS_MVG,
+    "casdiffmvs_mvg": CASDIFFMVS_MVG,
+    "diffmvs_tank": DIFFMVS_TANK,
+    "casdiffmvs_tank": CASDIFFMVS_TANK,
+}
+
+# Benchmark eval resolutions
+EVAL_RESOLUTIONS = {
+    "dtu": (1600, 1152),     # (W, H)
+    "tank": (1920, 1056),
+    "eth3d": (1920, 1280),
+}

@@ -1,0 +1,192 @@
+"""Top model: DiffMVS / CasDiffMVS orchestration (inference).
+
+Counterpart of diffmvs_tpu/models/casdiffmvs.py. The variant is selected by
+ModelConfig.stage_iters[2] (0 => DiffMVS with a single 1/4-res refinement
+and x4 upsample; >0 => the 1/4 + 1/2 cascade with x2 upsamples).
+
+Forward contract (the JAX package's):
+  imgs:          [B, V, H, W, 3] float in [0, 1] or uint8 (ref view first)
+  proj_matrices: {stage1..4: [B, V, 2, 4, 4]} (extrinsic, intrinsic pairs)
+  depth_values:  [B, ND] inverse-depth linspace (first and last are used)
+Returns {"depth": [...], "conf": [...], "photometric_confidence": [...]}
+with the JAX package's list layout for export=True and export=False.
+
+Inside, maps are NCHW; the images enter as a channels-last view, so the
+conv stacks run channels-last and the stage features reach the warp
+kernel as contiguous NHWC maps without a copy (for B = 1).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from diffmvs_tpu_torch.config import ModelConfig
+from diffmvs_tpu_torch.geometry.transforms import depth_to_disp, disp_to_depth
+from diffmvs_tpu_torch.geometry.upsample import upsample_with_mask
+from diffmvs_tpu_torch.models.refine import RefinementStage
+from diffmvs_tpu_torch.models.schedule import DiffusionSchedule
+from diffmvs_tpu_torch.models.stages import InitialStage
+from diffmvs_tpu_torch.nn.context import ContextNet
+from diffmvs_tpu_torch.nn.feature import FeatureNet
+from diffmvs_tpu_torch.nn.layers import ConvBnAct
+from diffmvs_tpu_torch.ops.resize import upsample_nearest
+
+
+class HiddenInit(nn.Sequential):
+    """Strided convs bringing the context hidden state to 1/8 resolution
+    (num_down stride-2 ConvBnActs, then a bias-free 3x3)."""
+
+    def __init__(self, hidden_dim: int, num_down: int = 1):
+        layers = [ConvBnAct(hidden_dim if i == 0 else 32, 32, 3, 2, 1)
+                  for i in range(num_down)]
+        layers.append(nn.Conv2d(32, hidden_dim, 3, padding=1, bias=False))
+        super().__init__(*layers)
+
+
+def views_nhwc(x, b, v):
+    """[B*V, C, h, w] -> V contiguous NHWC maps [B, h, w, C]."""
+    x = x.permute(0, 2, 3, 1)
+    x = x.reshape((b, v) + x.shape[1:]).transpose(0, 1).contiguous()
+    return list(x.unbind(0))
+
+
+class CasDiffMVS(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        cfg.validate()
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                "the PyTorch port runs float32 compute only so far")
+        self.cfg = cfg
+        self.feature = FeatureNet(cfg.base_channels, cfg.feat_dim_stage)
+        self.context = ContextNet(cfg.ctx_out_dim)
+        self.depthnet = InitialStage(cfg.ctx_out_dim[0],
+                                     cfg.cost_dim_stage[0], up_ratio=2)
+        hidden_inits = []
+        for s in (1, 2):
+            if cfg.stage_iters[s] == 0:
+                continue
+            hidden_inits.append(HiddenInit(cfg.hidden_dim[s], num_down=s))
+            setattr(self, f"update_block_depth{s + 1}", RefinementStage(
+                unet_dim=cfg.unet_dim[s],
+                dim_mults=cfg.unet_dim_mults[s],
+                hidden_dim=cfg.hidden_dim[s],
+                context_dim=cfg.context_dim[s],
+                num_sample=cfg.cost_num[s],
+                group_dim=cfg.cost_dim_stage[s],
+                depth_interval=(1.0 / cfg.numdepth)
+                * cfg.depth_intervals_ratio[s],
+                iters=cfg.stage_iters[s],
+                up_ratio=cfg.up_ratio,
+                schedule=DiffusionSchedule(
+                    timesteps=cfg.timesteps[s],
+                    sampling_timesteps=cfg.sampling_timesteps[s],
+                    eta=cfg.ddim_eta[s],
+                    scale=cfg.scale[s]),
+                min_radius=cfg.min_radius,
+                max_radius=cfg.max_radius))
+        self.hidden_init = nn.ModuleList(hidden_inits)
+
+    def forward(self, imgs, proj_matrices, depth_values,
+                generator: Optional[torch.Generator] = None,
+                export: bool = False):
+        """DDIM inference. generator=None gives zero diffusion noise.
+
+        export=False: every intermediate depth and per-iteration
+          confidence (the reference's validation lists).
+        export=True: final depth + full-res confidences only.
+        """
+        cfg = self.cfg
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.float() / 255.0
+        b, v = imgs.shape[0], imgs.shape[1]
+
+        disp_min = depth_values[:, 0].float()              # [B]
+        disp_max = depth_values[:, -1].float()
+        depth_max = 1.0 / disp_min
+        depth_min = 1.0 / disp_max
+
+        def bshape(x, arr):
+            return x.reshape((b,) + (1,) * (arr.dim() - 1))
+
+        def scale_inv_depth(nd):
+            return disp_to_depth(nd, bshape(depth_min, nd),
+                                 bshape(depth_max, nd))
+
+        def to_disp(d):
+            return depth_to_disp(d, bshape(depth_min, d),
+                                 bshape(depth_max, d))
+
+        # views fold into the batch; the permuted NHWC input is a
+        # channels-last NCHW view
+        nchw = imgs.permute(0, 1, 4, 2, 3)
+        feats = self.feature(nchw.reshape((b * v,) + nchw.shape[2:]))
+        features = {k: views_nhwc(x, b, v) for k, x in feats.items()}
+        contexts = self.context(nchw[:, 0])
+
+        depth_predictions = []
+        confs = []           # per-iteration confidences (non-export)
+        confidences = []     # full-res photometric confidences
+        view_weights = None
+
+        for stage_idx in range(3):
+            if stage_idx > 0 and cfg.stage_iters[stage_idx] == 0:
+                continue
+            stage_key = f"stage{stage_idx + 1}"
+            feat_list = features[stage_key]
+            proj_stage = proj_matrices[stage_key].float()
+            context_stage = contexts[stage_key]
+            h, w = feat_list[0].shape[1], feat_list[0].shape[2]
+
+            if stage_idx == 0:
+                nd0 = cfg.numdepth_initial
+                samples = torch.arange(nd0, dtype=torch.float32,
+                                       device=imgs.device) / (nd0 - 1.0)
+                samples = samples.reshape(1, nd0, 1, 1).expand(b, nd0, h, w)
+                depth_hyp = scale_inv_depth(samples)[1]
+
+                ctx = F.relu(context_stage)
+                mask, inv_depth, init_depth, view_weights, conf = \
+                    self.depthnet(feat_list, ctx, proj_stage, depth_hyp,
+                                  scale_inv_depth)
+                depth_predictions.append(init_depth)
+                confidences.append(upsample_nearest(conf, 2 ** 3))
+                inv_up = upsample_with_mask(inv_depth, mask.float(), 2)
+                depth_predictions.append(scale_inv_depth(inv_up)[1])
+                continue
+
+            hd = cfg.hidden_dim[stage_idx]
+            inv_cur = to_disp(depth_predictions[-1])
+            vw_stage = upsample_nearest(view_weights, 2 ** stage_idx,
+                                        spatial_axes=(2, 3))
+            hidden_d = torch.tanh(
+                self.hidden_init[stage_idx - 1](context_stage[:, :hd]))
+            ctx = F.relu(context_stage[:, hd:])
+
+            block = getattr(self, f"update_block_depth{stage_idx + 1}")
+            mask, _, inv_seq, conf_seq = block(
+                inv_cur, hidden_d, ctx, feat_list, proj_stage, depth_min,
+                depth_max, vw_stage, generator=generator)
+
+            if not export:
+                for inv_i in inv_seq:
+                    depth_predictions.append(scale_inv_depth(inv_i)[1])
+                confs.extend(conf_seq)
+            else:
+                depth_predictions.append(scale_inv_depth(inv_seq[-1])[1])
+                confidences.append(
+                    upsample_nearest(conf_seq[-1], 2 ** (3 - stage_idx)))
+
+            inv_up = upsample_with_mask(inv_seq[-1], mask.float(),
+                                        cfg.up_ratio)
+            depth_predictions.append(scale_inv_depth(inv_up)[1])
+
+        return {
+            "depth": depth_predictions,
+            "conf": confs,
+            "photometric_confidence": confidences,
+        }

@@ -1,0 +1,203 @@
+"""PyTorch port: geometry, ops and the warp kernel's module against JAX.
+
+Same numpy inputs through the JAX function and its port counterpart on
+the CPU (the port's plain paths). Tolerances:
+  * coordinates rtol 1e-6 / atol 1e-4 px, the rest rtol 1e-5 / atol 1e-6:
+    the same float32 ops in the same order, only FMA contraction on the
+    XLA side may differ;
+  * warp + correlation rtol 1e-4 / atol 1e-5: the Pallas kernel
+    interpolates y-then-x, the plain path x-then-y.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from diffmvs_tpu.geometry import sampling as jsampling
+from diffmvs_tpu.geometry import transforms as jtransforms
+from diffmvs_tpu.geometry import upsample as jupsample
+from diffmvs_tpu.geometry import warp as jwarp
+from diffmvs_tpu.ops import correlation as jcorr
+from diffmvs_tpu.ops import softargmax as jsoftargmax
+from diffmvs_tpu.ops.pallas.warp_corr import warp_corr_pallas
+
+from diffmvs_tpu_torch.geometry import sampling, transforms, upsample, warp
+from diffmvs_tpu_torch.ops import correlation, softargmax, warp_corr
+
+from helpers import make_cams, stage_projs
+
+T = torch.from_numpy
+TOL = dict(rtol=1e-5, atol=1e-6)
+COORD_TOL = dict(rtol=1e-6, atol=1e-4)
+CORR_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _np(x):
+    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _pairs(rng, n=2, h=64, w=96, stage="stage2"):
+    """(src_pair, ref_pair) [n, 2, 4, 4]: the test rig, jittered."""
+    cams = stage_projs(make_cams(2, h, w))[stage]
+    src = np.repeat(cams[1:2], n, axis=0)
+    src[:, 0, :3, 3] += 0.05 * rng.randn(n, 3).astype(np.float32)
+    ref = np.repeat(cams[0:1], n, axis=0)
+    return src, ref
+
+
+def test_relative_projection(rng):
+    src, ref = _pairs(rng, n=3)
+    rot_j, tr_j = jtransforms.relative_projection(src, ref)
+    rot_t, tr_t = transforms.relative_projection(T(src), T(ref))
+    np.testing.assert_allclose(_np(rot_t), _np(rot_j), **TOL)
+    np.testing.assert_allclose(_np(tr_t), _np(tr_j), **TOL)
+
+
+def test_plane_sweep_coords_with_zero_depth_plane(rng):
+    src, ref = _pairs(rng, n=2, h=32, w=48, stage="stage1")
+    rot, tr = jtransforms.relative_projection(src, ref)
+    rot, tr = np.array(rot), np.array(tr)
+    # sample 1: z == 0 everywhere -> the 1e-8 clamp
+    rot[1, 2] = 0.0
+    tr[1, 2] = 0.0
+    depth = (4.0 + 6.0 * rng.rand(2, 5, 4, 6)).astype(np.float32)
+    xj, yj = jwarp.plane_sweep_coords(rot, tr, depth)
+    xt, yt = warp.plane_sweep_coords(T(rot), T(tr), T(depth))
+    np.testing.assert_allclose(_np(xt), _np(xj), **COORD_TOL)
+    np.testing.assert_allclose(_np(yt), _np(yj), **COORD_TOL)
+    assert np.abs(_np(xt[1])).max() > 1e6          # divided by 1e-8
+
+
+def test_bilinear_sample_straddles_every_border(rng):
+    hs, ws, c = 7, 9, 5
+    src = rng.randn(2, hs, ws, c).astype(np.float32)
+    # coordinates over [-1.5, size + 0.5]: fully outside, straddling each
+    # border and corner, inside, plus exact integer pixel centres
+    x = rng.uniform(-1.5, ws + 0.5, (2, 300)).astype(np.float32)
+    y = rng.uniform(-1.5, hs + 0.5, (2, 300)).astype(np.float32)
+    x[:, :20] = np.arange(-1, 19, dtype=np.float32) / 2.0
+    y[:, :20] = np.arange(-1, 19, dtype=np.float32) / 3.0
+    want = jsampling.bilinear_sample(src, x, y)
+    got = sampling.bilinear_sample(T(src), T(x), T(y))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_upsample_with_mask(rng):
+    b, h, w, r = 2, 5, 7, 4
+    depth = rng.rand(b, h, w).astype(np.float32)
+    logits = rng.randn(b, h, w, 9 * r * r).astype(np.float32)
+    want = jupsample.upsample_with_mask(depth, logits, r)
+    got = upsample.upsample_with_mask(
+        T(depth), T(logits).permute(0, 3, 1, 2), r)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_depth_regression_with_confidence(rng):
+    logits = (3.0 * rng.randn(2, 12, 5, 6)).astype(np.float32)
+    nj, cj = jsoftargmax.depth_regression_with_confidence(logits)
+    nt, ct = softargmax.depth_regression_with_confidence(T(logits))
+    np.testing.assert_allclose(_np(nt), _np(nj), **TOL)
+    np.testing.assert_allclose(_np(ct), _np(cj), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "confidence", "first_iteration"])
+def test_depth_range_samples(rng, mode):
+    cur = rng.rand(2, 6, 7).astype(np.float32)
+    conf = rng.rand(2, 6, 7).astype(np.float32)
+    kw = dict(min_radius=0.125, max_radius=8.0)
+    if mode == "fixed":
+        want = jtransforms.depth_range_samples(cur, 4, 1 / 96, **kw)
+        got = transforms.depth_range_samples(T(cur), 4, 1 / 96, **kw)
+    else:
+        use = mode == "confidence"
+        want = jtransforms.depth_range_samples(
+            cur, 4, 1 / 96, conf, use_confidence=jnp.asarray(use), **kw)
+        got = transforms.depth_range_samples(
+            T(cur), 4, 1 / 96, T(conf), use_confidence=use, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_aggregate_views(rng):
+    cor = rng.randn(3, 2, 4, 5, 6, 4).astype(np.float32)
+    vw = rng.rand(3, 2, 5, 6).astype(np.float32)
+    want = jcorr.aggregate_views(cor, vw)
+    got = correlation.aggregate_views(T(cor), T(vw))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def _corr_case(rng, case):
+    """(src, ref, src_pair, ref_pair, depths, window_group) numpy inputs.
+
+    "refine": 48x128, C=16, D=4 banded hypotheses (stage-3 geometry);
+    "sweep": 48x100, C=32, a uniform 8-plane sweep (stage-1 geometry)."""
+    if case == "refine":
+        hs, ws, c, d, stage, fullmul = 48, 128, 16, 4, "stage3", 2
+    else:
+        hs, ws, c, d, stage, fullmul = 48, 100, 32, 8, "stage1", 8
+    projs = stage_projs(make_cams(2, hs * fullmul, ws * fullmul))[stage]
+    src = rng.randn(1, hs, ws, c).astype(np.float32)
+    ref = rng.randn(1, hs, ws, c).astype(np.float32)
+    if case == "refine":
+        base = 6.0 + 1.5 * rng.rand(1, 1, hs, ws).astype(np.float32)
+        offs = (np.arange(d, dtype=np.float32) - d / 2) * 0.02
+        depths = base + offs.reshape(1, d, 1, 1)
+        wg = 0
+    else:
+        sweep = 1.0 / np.linspace(1 / 10.0, 1 / 4.0, d, dtype=np.float32)
+        depths = np.broadcast_to(sweep.reshape(1, d, 1, 1), (1, d, hs, ws))
+        wg = 4
+    return (src, ref, projs[1][None], projs[0][None],
+            np.ascontiguousarray(depths, np.float32), wg)
+
+
+@pytest.mark.parametrize("case", ["refine", "sweep"])
+def test_warp_and_correlate_plain_matches_jax(rng, case):
+    src, ref, sp, rp, depths, wg = _corr_case(rng, case)
+    got = _np(correlation.warp_and_correlate(
+        T(src), T(ref), T(sp), T(rp), T(depths), 4))
+    want_xla = np.asarray(jax.jit(
+        lambda *a: jcorr.warp_and_correlate(*a, 4))(src, ref, sp, rp, depths))
+    want_pallas = np.asarray(jax.jit(
+        lambda *a: warp_corr_pallas(*a, 4, window_group=wg, interpret=True)
+    )(src, ref, sp, rp, depths))
+    assert got.shape == want_xla.shape == want_pallas.shape
+    np.testing.assert_allclose(got, want_xla, **CORR_TOL)
+    np.testing.assert_allclose(got, want_pallas, **CORR_TOL)
+
+
+def test_warp_and_correlate_takes_plain_path_on_cpu(rng, monkeypatch):
+    src, ref, sp, rp, depths, _ = _corr_case(rng, "refine")
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("kernel called for CPU tensors")
+
+    monkeypatch.setattr(warp_corr, "warp_corr", no_kernel)
+    before = warp_corr.launches
+    args = (T(src), T(ref), T(sp), T(rp), T(depths), 4)
+    got = correlation.warp_and_correlate(*args)
+    want = correlation.warp_and_correlate_plain(*args)
+    assert torch.equal(got, want)
+    assert warp_corr.launches == before
+
+
+def test_kernel_wrapper_refuses_cpu_tensors(rng):
+    src, ref, sp, rp, depths, _ = _corr_case(rng, "refine")
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_corr.warp_corr(T(src), T(ref), T(sp), T(rp), T(depths), 4)
+
+
+def test_kernel_module_imports_without_nvcc():
+    """Importing the kernel module builds nothing: the library is built
+    and loaded on the first CUDA call only."""
+    code = ("import diffmvs_tpu_torch.ops.warp_corr as w; "
+            "assert w._lib is None and w.launches == 0; "
+            "assert w.SOURCE.exists()")
+    env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=os.path.dirname(os.path.dirname(__file__)))
