@@ -46,7 +46,7 @@ def resolve_device(device=None) -> torch.device:
     """None means CUDA; asking for CUDA where there is none raises."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("DepthRunner: CUDA is not available; pass "
+        raise RuntimeError("diffmvs_tpu_torch: CUDA is not available; pass "
                            "device='cpu' to run on the CPU")
     return dev
 

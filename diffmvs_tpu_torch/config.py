@@ -1,9 +1,11 @@
-"""Typed model configuration for DiffMVS / CasDiffMVS (PyTorch port).
+"""Typed model and training configuration for DiffMVS / CasDiffMVS
+(PyTorch port).
 
 Counterpart of diffmvs_tpu/config.py without the TPU layout flags (warp
-kernel selection, s2d layouts, unrolling): the port computes each
+kernel selection, s2d layouts, unrolling, remat): the port computes each
 operation once, in NCHW, and the plane-sweep warp always goes through
-ops.correlation.warp_and_correlate.
+ops.correlation.warp_and_correlate. TrainConfig leaves out the device
+mesh (dp/sp): data-parallel training is not ported yet.
 
 Per-stage hyperparameters are 3-tuples indexed by stage (stage 0 = 1/8-res
 initialization, stage 1 = 1/4-res refinement, stage 2 = 1/2-res
@@ -91,6 +93,35 @@ class ModelConfig:
                 raise ValueError(f"stage {s} needs cost samples, a hidden "
                                  f"state and a UNet")
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training configuration (the reference's train.py flags)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    dataset: str = "dtu"
+    epochs: int = 16
+    train_epochs: int = -1          # early-stop epoch count (-1 = epochs)
+    batch_size: int = 4
+    lr: float = 1e-3
+    lr_sche: str = "onecycle"       # onecycle | mslr
+    lrepochs: str = "10,12,14:2"    # for mslr
+    weight_decay: float = 1e-3
+    train_views: int = 5
+    test_views: int = 5
+    seed: int = 123
+    loss_rate: float = 0.9          # exponential loss weighting
+    conf_weight: float = 0.05       # confidence-loss weight
+    grad_clip: float = 2.0
+    save_freq: int = 1
+    eval_freq: int = 1
+    summary_freq: int = 20
+
+    # gradient accumulation: the batch runs as accum_steps sequential
+    # microbatches whose gradients are averaged into ONE optimizer update
+    # (train/step.py)
+    accum_steps: int = 1
 
 
 # ---------------------------------------------------------------------------

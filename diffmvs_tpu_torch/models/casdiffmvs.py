@@ -1,4 +1,4 @@
-"""Top model: DiffMVS / CasDiffMVS orchestration (inference).
+"""Top model: DiffMVS / CasDiffMVS orchestration.
 
 Counterpart of diffmvs_tpu/models/casdiffmvs.py. The variant is selected by
 ModelConfig.stage_iters[2] (0 => DiffMVS with a single 1/4-res refinement
@@ -8,8 +8,15 @@ Forward contract (the JAX package's):
   imgs:          [B, V, H, W, 3] float in [0, 1] or uint8 (ref view first)
   proj_matrices: {stage1..4: [B, V, 2, 4, 4]} (extrinsic, intrinsic pairs)
   depth_values:  [B, ND] inverse-depth linspace (first and last are used)
+  depth_gt:      {stage1..4: [B, Hs, Ws]} metric GT (training only)
 Returns {"depth": [...], "conf": [...], "photometric_confidence": [...]}
-with the JAX package's list layout for export=True and export=False.
+with the JAX package's list layout for train=True, export=True and
+export=False.
+
+Gradient seams (the reference's detaches): the refinement stages start
+from the detached previous depth and take detached view weights; the
+training branch's GT fallback (the upsampled initial depth) is detached.
+BatchNorm follows the module's mode: model.train() for training.
 
 Inside, maps are NCHW; the images enter as a channels-last view, so the
 conv stacks run channels-last and the stage features reach the warp
@@ -18,7 +25,7 @@ kernel as contiguous NHWC maps without a copy (for B = 1).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -91,14 +98,21 @@ class CasDiffMVS(nn.Module):
                 max_radius=cfg.max_radius))
         self.hidden_init = nn.ModuleList(hidden_inits)
 
-    def forward(self, imgs, proj_matrices, depth_values,
+    def forward(self, imgs, proj_matrices, depth_values, depth_gt=None,
                 generator: Optional[torch.Generator] = None,
-                export: bool = False):
-        """DDIM inference. generator=None gives zero diffusion noise.
+                train: bool = False, export: bool = False,
+                train_overrides: Optional[Dict] = None):
+        """generator: the source of the diffusion timesteps and noise; for
+        inference, None gives zero noise.
 
-        export=False: every intermediate depth and per-iteration
-          confidence (the reference's validation lists).
-        export=True: final depth + full-res confidences only.
+        train=True: training branch (q_sample of the GT residual), every
+          intermediate depth and per-iteration confidence; needs depth_gt
+          and either a generator or train_overrides.
+        train=False, export=False: DDIM inference with the same full lists
+          (the reference's validation).
+        train=False, export=True: final depth + full-res confidences only.
+        train_overrides: optional {stage_idx: (t [B], noise [B, Hs, Ws])}
+          replacing each refinement stage's draw.
         """
         cfg = self.cfg
         if imgs.dtype == torch.uint8:
@@ -160,19 +174,30 @@ class CasDiffMVS(nn.Module):
                 continue
 
             hd = cfg.hidden_dim[stage_idx]
-            inv_cur = to_disp(depth_predictions[-1])
-            vw_stage = upsample_nearest(view_weights, 2 ** stage_idx,
+            inv_cur = to_disp(depth_predictions[-1].detach())
+            vw_stage = upsample_nearest(view_weights.detach(), 2 ** stage_idx,
                                         spatial_axes=(2, 3))
             hidden_d = torch.tanh(
                 self.hidden_init[stage_idx - 1](context_stage[:, :hd]))
             ctx = F.relu(context_stage[:, hd:])
 
+            inv_init = inv_gt = t_noise = None
+            if train:
+                init_up = upsample_nearest(depth_predictions[0],
+                                           2 ** stage_idx)
+                inv_init = to_disp(init_up).detach()
+                inv_gt = to_disp(depth_gt[stage_key])
+                if train_overrides is not None:
+                    t_noise = train_overrides.get(stage_idx)
+
             block = getattr(self, f"update_block_depth{stage_idx + 1}")
             mask, _, inv_seq, conf_seq = block(
                 inv_cur, hidden_d, ctx, feat_list, proj_stage, depth_min,
-                depth_max, vw_stage, generator=generator)
+                depth_max, vw_stage, generator=generator,
+                gt_inv_depth=inv_gt, inv_init_depth=inv_init, train=train,
+                t_noise=t_noise)
 
-            if not export:
+            if train or not export:
                 for inv_i in inv_seq:
                     depth_predictions.append(scale_inv_depth(inv_i)[1])
                 confs.extend(conf_seq)

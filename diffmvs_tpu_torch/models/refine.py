@@ -1,14 +1,16 @@
-"""Diffusion-based depth refinement stage (DDIM inference branch).
+"""Diffusion-based depth refinement stage.
 
 Counterpart of diffmvs_tpu/models/refine.py (RefineIteration,
-RefinementStage.eval_forward). The inference path only: the q_sample
-training branch comes with the training part of the port.
+RefinementStage.train_forward / eval_forward).
 
-Per stage: the residual inverse depth starts from noise (zero when no
-generator is given or the stage's noise scale is 0), and a GRU-UNet
-denoiser iteratively predicts delta + confidence from local cost volumes.
-The hidden state resets for every DDIM time pair. The diffusion state
-(delta, inverse depth, confidence) stays float32.
+Per stage: the residual inverse depth is diffused (training: q_sample of
+the GT residual at a random timestep; inference: DDIM over the sampling
+time pairs, starting from noise that is zero when no generator is given
+or the stage's noise scale is 0), and a GRU-UNet denoiser iteratively
+predicts delta + confidence from local cost volumes. The hidden state
+resets for every DDIM time pair. The diffusion state (delta, inverse
+depth, confidence) stays float32 and is detached at the start of every
+iteration, as in the reference (a no-op at inference).
 
 RefinementStage subclasses RefineIteration so that the encoder, the UNet
 and the mask head sit directly under the stage, as in the reference's
@@ -58,6 +60,9 @@ class RefineIteration(nn.Module):
                 t, inv_depth, features, proj_pairs, depth_min, depth_max,
                 view_weights):
         """Returns the next (hidden, inv_new, delta, confidence)."""
+        delta = delta.detach()
+        confidence = confidence.detach()
+        inv_new = inv_new.detach()
         cost, samples = local_cost_volume(
             inv_new, features, proj_pairs, self.depth_interval, depth_min,
             depth_max, self.cost_num, self.group_dim, view_weights,
@@ -90,12 +95,75 @@ class RefinementStage(RefineIteration):
 
     def forward(self, inv_depth, hidden, context, features, proj_pairs,
                 depth_min, depth_max, view_weights,
-                generator: Optional[torch.Generator] = None):
-        """DDIM inference. All maps [B, H, W]; hidden/context NCHW.
+                generator: Optional[torch.Generator] = None,
+                gt_inv_depth=None, inv_init_depth=None, train: bool = False,
+                t_noise=None):
+        """All maps [B, H, W]; hidden/context NCHW. train=True runs the
+        q_sample training branch, else DDIM inference.
 
         Returns (mask_logits, hidden, [inv_depth per iteration],
-                 [confidence per iteration]) of the last DDIM time pair.
+                 [confidence per iteration]); at inference, those of the
+        last DDIM time pair.
         """
+        if train:
+            return self.train_forward(
+                inv_depth, hidden, context, features, proj_pairs, depth_min,
+                depth_max, view_weights, gt_inv_depth, inv_init_depth,
+                generator=generator, t_noise=t_noise)
+        return self.eval_forward(inv_depth, hidden, context, features,
+                                 proj_pairs, depth_min, depth_max,
+                                 view_weights, generator=generator)
+
+    def train_forward(self, inv_depth, hidden, context, features,
+                      proj_pairs, depth_min, depth_max, view_weights,
+                      gt_inv_depth, inv_init_depth,
+                      generator: Optional[torch.Generator] = None,
+                      t_noise=None):
+        """Training branch: the iterations denoise q_sample(GT residual).
+
+        gt_inv_depth: [B, H, W] normalized inverse GT (inf where the GT is
+          0, replaced by inv_init_depth, the detached initial estimate).
+        t_noise: optional (t [B], noise [B, H, W]) replacing the draw from
+          `generator` (the seam that lets two implementations take the same
+          timesteps and noise).
+        """
+        b = inv_depth.shape[0]
+        dev = inv_depth.device
+        sched = self.schedule
+        gt_inv_depth = torch.where(torch.isinf(gt_inv_depth), inv_init_depth,
+                                   gt_inv_depth)
+        gt_delta = (gt_inv_depth - inv_depth).detach()
+        if t_noise is not None:
+            t = torch.as_tensor(t_noise[0], device=dev).long()
+            noise = torch.as_tensor(t_noise[1], dtype=gt_delta.dtype,
+                                    device=dev)
+        elif generator is not None:
+            t = torch.randint(0, sched.timesteps, (b,), generator=generator,
+                              device=dev)
+            noise = noise_like(generator, gt_delta, sched.scale)
+        else:
+            raise ValueError("the training branch draws its timesteps and "
+                             "noise from a generator: pass one, or t_noise")
+
+        delta = sched.q_sample(gt_delta, t, noise)
+        inv_new = torch.clamp(inv_depth + delta, 0.0, 1.0)
+        delta = inv_new - inv_depth
+        confidence = torch.zeros_like(inv_depth)
+        cur_hidden = hidden
+        inv_seq, conf_seq = [], []
+        for i in range(self.iters):
+            cur_hidden, inv_new, delta, confidence = self.iterate(
+                cur_hidden, inv_new, delta, confidence, i > 0, context, t,
+                inv_depth, features, proj_pairs, depth_min, depth_max,
+                view_weights)
+            inv_seq.append(inv_new)
+            conf_seq.append(confidence)
+        return self.mask(context), cur_hidden, inv_seq, conf_seq
+
+    def eval_forward(self, inv_depth, hidden, context, features, proj_pairs,
+                     depth_min, depth_max, view_weights,
+                     generator: Optional[torch.Generator] = None):
+        """DDIM inference."""
         b = inv_depth.shape[0]
         sched = self.schedule
         img = noise_like(generator, inv_depth, sched.scale)

@@ -57,6 +57,15 @@ class DiffusionSchedule:
         tab = torch.from_numpy(self.table(name)).to(t.device)
         return tab[t.long()].reshape((t.shape[0],) + (1,) * (ndim - 1))
 
+    def q_sample(self, x_start, t, noise):
+        """Forward diffusion x_t = sqrt(ab_t) x_0 + sqrt(1-ab_t) eps.
+
+        x_start: [B, ...]; t: [B] integer timesteps; noise like x_start.
+        """
+        sa = self._at("sqrt_alphas_cumprod", t, x_start.dim())
+        so = self._at("sqrt_one_minus_alphas_cumprod", t, x_start.dim())
+        return sa * x_start + so * noise
+
     def predict_noise_from_start(self, x_t, t, x0):
         sr = self._at("sqrt_recip_alphas_cumprod", t, x_t.dim())
         sm = self._at("sqrt_recipm1_alphas_cumprod", t, x_t.dim())

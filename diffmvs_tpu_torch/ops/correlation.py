@@ -6,8 +6,10 @@ tests compare like with like.
 
 warp_and_correlate dispatches on the device of its inputs: CPU tensors go
 to warp_and_correlate_plain (plane_sweep_coords -> bilinear_sample ->
-group_correlation), CUDA tensors to the hand-written kernel in
-ops/warp_corr.py, which launches or raises.
+group_correlation), whose autograd is the oracle for the kernels' gradient;
+CUDA tensors, with or without gradient, go to the autograd Function in
+ops/warp_corr.py (forward kernel K1, backward kernel K2), which launches or
+raises.
 """
 
 from __future__ import annotations
@@ -49,9 +51,10 @@ def warp_and_correlate(src_fea, ref_fea, src_pair, ref_pair, depth_values,
                        groups):
     """Fused plane-sweep warp + group correlation for one source view.
 
-    Same arguments and result as warp_and_correlate_plain. On CUDA tensors
-    it runs the kernel (float32 result, a [B, D, H, W, G] view of a
-    [B, G, D, H, W] buffer); on CPU tensors the plain version.
+    Same arguments and result as warp_and_correlate_plain, differentiable
+    in the two feature maps. On CUDA tensors it runs the kernels (float32
+    result, a [B, D, H, W, G] view of a [B, G, D, H, W] buffer); on CPU
+    tensors the plain version.
     """
     if src_fea.is_cuda:
         return warp_corr.warp_corr(src_fea, ref_fea, src_pair, ref_pair,

@@ -38,61 +38,20 @@
 // cannot gather from HBM; this kernel reads the whole source image, so it
 // is exact everywhere and needs no miss guard.
 //
-// Rounding: the coordinate and interpolation arithmetic uses explicit
-// round-to-nearest intrinsics in the plain path's operation order (the
-// coordinates' last step is the one fused multiply-add that
-// plane_sweep_coords and the JAX reference also take), so the
-// coordinates agree with plane_sweep_coords bit for bit and the only
-// differences left are in the channel sum order. Do not build with
-// --use_fast_math (approximate division, flushed denormals).
-//
-// Validity is decided in float before any integer conversion: a NaN or
-// huge coordinate fails the test and contributes zero, and (int)floorf()
-// is only evaluated on in-range values.
+// Coordinates, corners and validity come from warp_geom.cuh, which the
+// backward kernel (warp_corr_bwd.cu) shares, so the two sample at the same
+// coordinates bit for bit; they agree with plane_sweep_coords too, and the
+// only differences left are in the channel sum order.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "warp_geom.cuh"
 
 namespace {
 
+using warp_geom::bilerp;
+using warp_geom::load1;
+using warp_geom::load4;
+
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  // four bf16 in 8 bytes; a bf16 is the high half of its f32
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// top = v00 + (v01 - v00) * wx; bot likewise; top + (bot - top) * wy
-__device__ __forceinline__ float bilerp(float v00, float v01, float v10,
-                                        float v11, float wx, float wy) {
-  const float top = __fadd_rn(v00, __fmul_rn(__fsub_rn(v01, v00), wx));
-  const float bot = __fadd_rn(v10, __fmul_rn(__fsub_rn(v11, v10), wx));
-  return __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), wy));
-}
-
-// fma(m0 * x + m1 * y + m2, dep, t): the sum rounds after each
-// operation, the last step is one fused multiply-add
-__device__ __forceinline__ float project(const float* m, float t, float xg,
-                                         float yg, float dep) {
-  const float lin =
-      __fadd_rn(__fadd_rn(__fmul_rn(m[0], xg), __fmul_rn(m[1], yg)), m[2]);
-  return __fmaf_rn(lin, dep, t);
-}
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -107,50 +66,29 @@ warp_corr_kernel(const T* __restrict__ src, const T* __restrict__ ref,
   const int n = blockIdx.z;
   const int yi = pix / W;
   const int xi = pix - yi * W;
-  const float xg = static_cast<float>(xi);
-  const float yg = static_cast<float>(yi);
 
-  const float* m = rt + static_cast<size_t>(n) * 12;
   const float dep = depth[(static_cast<size_t>(n) * D + d) * hw + pix];
-  const float px = project(m + 0, m[9], xg, yg, dep);
-  const float py = project(m + 3, m[10], xg, yg, dep);
-  float pz = project(m + 6, m[11], xg, yg, dep);
-  if (pz == 0.0f) pz = 1e-8f;
-  const float sx = __fdiv_rn(px, pz);
-  const float sy = __fdiv_rn(py, pz);
+  const warp_geom::Sample s =
+      warp_geom::locate(rt + static_cast<size_t>(n) * 12,
+                        static_cast<float>(xi), static_cast<float>(yi), dep,
+                        Hs, Ws);
 
   const int cg = C / G;
   const float inv_cg = 1.0f / static_cast<float>(cg);
   float* out_p = out + (static_cast<size_t>(n) * G * D + d) *
                            static_cast<size_t>(hw) + pix;
   const size_t g_stride = static_cast<size_t>(D) * hw;
-
-  const float x0f = floorf(sx);
-  const float y0f = floorf(sy);
-  // some corner inside: x0 in [-1, Ws-1] and y0 in [-1, Hs-1]
-  // (false for NaN and +-inf)
-  const bool inside = x0f >= -1.0f && x0f <= static_cast<float>(Ws - 1) &&
-                      y0f >= -1.0f && y0f <= static_cast<float>(Hs - 1);
-  if (!inside) {
+  if (!s.inside) {
     for (int g = 0; g < G; ++g) out_p[g * g_stride] = 0.0f;
     return;
   }
-  const float wx = __fsub_rn(sx, x0f);
-  const float wy = __fsub_rn(sy, y0f);
-  const int x0 = static_cast<int>(x0f);
-  const int y0 = static_cast<int>(y0f);
-  const bool vx0 = x0 >= 0, vx1 = x0 + 1 <= Ws - 1;
-  const bool vy0 = y0 >= 0, vy1 = y0 + 1 <= Hs - 1;
-  const bool v00 = vy0 && vx0, v01 = vy0 && vx1;
-  const bool v10 = vy1 && vx0, v11 = vy1 && vx1;
-  // clamped corner indices: only dereferenced when valid
-  const int xa = max(x0, 0), xb = min(x0 + 1, Ws - 1);
-  const int ya = max(y0, 0), yb = min(y0 + 1, Hs - 1);
+  const bool v00 = s.v00, v01 = s.v01, v10 = s.v10, v11 = s.v11;
+  const float wx = s.wx, wy = s.wy;
   const T* s_img = src + static_cast<size_t>(n) * Hs * Ws * C;
-  const T* p00 = s_img + (static_cast<size_t>(ya) * Ws + xa) * C;
-  const T* p01 = s_img + (static_cast<size_t>(ya) * Ws + xb) * C;
-  const T* p10 = s_img + (static_cast<size_t>(yb) * Ws + xa) * C;
-  const T* p11 = s_img + (static_cast<size_t>(yb) * Ws + xb) * C;
+  const T* p00 = s_img + static_cast<size_t>(s.i00) * C;
+  const T* p01 = s_img + static_cast<size_t>(s.i01) * C;
+  const T* p10 = s_img + static_cast<size_t>(s.i10) * C;
+  const T* p11 = s_img + static_cast<size_t>(s.i11) * C;
   const T* r_p = ref + (static_cast<size_t>(n) * hw + pix) * C;
 
   for (int g = 0; g < G; ++g) {

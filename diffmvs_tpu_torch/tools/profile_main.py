@@ -1,14 +1,16 @@
-"""Where the time goes on the card: the main inference path under
-torch.profiler.
+"""Where the time goes on the card: the main inference path, or a
+training step, under torch.profiler.
 
-    python3 -m diffmvs_tpu_torch.tools.profile_main [--requests 2]
+    python3 -m diffmvs_tpu_torch.tools.profile_main [--requests 2] [--train]
 
-Builds DepthRunner.from_random("casdiffmvs", device="cuda", seed=0) at
-DTU size (1152x1600, 5 views, 48/384 hypotheses, f32), answers one
-warm-up request, then profiles --requests more. Prints the card, the
-wall time per request, the device's busy time and idle share over the
-profiled window, the device time per kernel group, and the top kernels.
-Needs CUDA; fails without it.
+Default: DepthRunner.from_random("casdiffmvs", device="cuda", seed=0) at
+DTU size (1152x1600, 5 views, 48/384 hypotheses, f32) answers one
+warm-up request, then --requests more are profiled. --train: the training
+cell instead (CasDiffMVS f32, B=4, 5 views, 512x640, 48/384 hypotheses,
+random init from seed 0, a synthetic batch): one warm-up train_step, then
+--requests steps. Prints the card, the wall time per request or step, the
+device's busy time and idle share over the profiled window, the device
+time per kernel group, and the top kernels. Needs CUDA; fails without it.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ import torch
 
 # kernel-name fragments -> group, first match wins
 GROUPS = (
-    ("warp_corr", "warp_corr (hand-written)"),
+    ("warp_corr_bwd", "warp_corr backward (K2, hand-written)"),
+    ("warp_corr", "warp_corr (K1, hand-written)"),
+    ("multi_tensor", "optimizer"),
+    ("bn_bw", "normalization"),
     ("memcpy", "host-to-device copy"),
     ("bn_fw", "normalization"), ("moments", "normalization"),
     ("tonchw", "layout transform"), ("tonhwc", "layout transform"),
@@ -46,25 +51,49 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--requests", type=int, default=2)
-    ap.add_argument("--top", type=int, default=15)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_main: CUDA is not available")
-
+def request_work():
+    """One export request at DTU size."""
     from diffmvs_tpu_torch.api import DepthRunner
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
     hh, ww, views = 1152, 1600, 5
     runner = DepthRunner.from_random("casdiffmvs", image_hw=(hh, ww),
                                      views=views, device="cuda", seed=0)
     inputs = synthetic_inputs(1, views, hh, ww, 384, seed=0)
-    runner(*inputs)                                      # warm-up
+    return lambda: runner(*inputs)
+
+
+def train_work():
+    """One train step of the training cell (the batch is uploaded from
+    host memory in every step, as in run_training)."""
+    from diffmvs_tpu_torch.config import MODEL_PRESETS, TrainConfig
+    from diffmvs_tpu_torch.train.state import create_train_state
+    from diffmvs_tpu_torch.train.step import train_step
+    from diffmvs_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    cfg = TrainConfig(model=MODEL_PRESETS["casdiffmvs"], batch_size=4, seed=0)
+    state = create_train_state(cfg, steps_per_epoch=100, device="cuda",
+                               seed=0)
+    batch = synthetic_train_batch(4, 5, 512, 640, 384, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return lambda: train_step(state, cfg, batch, gen)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--requests", type=int, default=2)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--train", action="store_true",
+                    help="profile train steps of the training cell")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_main: CUDA is not available")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    work = train_work() if args.train else request_work()
+    work()                                               # warm-up
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -73,7 +102,7 @@ def main(argv=None):
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         for _ in range(args.requests):
             t0 = time.perf_counter()
-            runner(*inputs)
+            work()
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
 
@@ -91,19 +120,20 @@ def main(argv=None):
         raise SystemExit("profile_main: the trace holds no device events")
     busy_ms = sum(per_kernel.values()) / 1e3 / args.requests
     req_ms = sum(wall) / len(wall)
+    unit = "step" if args.train else "request"
     groups = collections.Counter()
     for name, us in per_kernel.items():
         groups[group_of(name)] += us / 1e3 / args.requests
     print(f"card: {smi}")
     print(json.dumps({
-        "request_ms": [round(w, 3) for w in wall],
-        "device_busy_ms_per_request": round(busy_ms, 3),
+        f"{unit}_ms": [round(w, 3) for w in wall],
+        f"device_busy_ms_per_{unit}": round(busy_ms, 3),
         "device_idle_share": round(max(0.0, 1.0 - busy_ms / req_ms), 4),
-        "groups_ms_per_request": {k: round(v, 3)
+        f"groups_ms_per_{unit}": {k: round(v, 3)
                                   for k, v in groups.most_common()},
     }))
     for name, us in per_kernel.most_common(args.top):
-        print(f"{us / 1e3 / args.requests:9.3f} ms/req "
+        print(f"{us / 1e3 / args.requests:9.3f} ms/{unit[:3]} "
               f"{counts[name] // args.requests:5d}x  {name[:110]}")
 
 

@@ -193,11 +193,13 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
 
 
 def test_kernel_module_imports_without_nvcc():
-    """Importing the kernel module builds nothing: the library is built
+    """Importing the kernel module builds nothing: the libraries are built
     and loaded on the first CUDA call only."""
     code = ("import diffmvs_tpu_torch.ops.warp_corr as w; "
-            "assert w._lib is None and w.launches == 0; "
-            "assert w.SOURCE.exists()")
+            "assert w._lib is None and w._bwd_lib is None; "
+            "assert w.launches == 0 and w.bwd_launches == 0; "
+            "assert all(p.exists() for p in w.SOURCES.values()); "
+            "assert all(p.exists() for p in w.HEADERS)")
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=os.path.dirname(os.path.dirname(__file__)))

@@ -108,7 +108,8 @@ def test_import_loads_no_jax():
         "import diffmvs_tpu_torch, diffmvs_tpu_torch.api, "
         "diffmvs_tpu_torch.models.casdiffmvs, "
         "diffmvs_tpu_torch.tools.jax_import, "
-        "diffmvs_tpu_torch.utils.synthetic\n"
+        "diffmvs_tpu_torch.utils.synthetic, diffmvs_tpu_torch.train.loop, "
+        "diffmvs_tpu_torch.train.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'diffmvs_tpu')]\n"
         "assert not bad, bad\n")
