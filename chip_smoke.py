@@ -5,8 +5,9 @@
 Phases (one line each; any failure exits non-zero):
   1. device       -- needs CUDA; prints the card's name and power limit;
                      TF32 off
-  2. build        -- compiles both kernels with nvcc, side by side: K1
-                     (ops/csrc/warp_corr.cu) and K2 (warp_corr_bwd.cu)
+  2. build        -- compiles the three kernels with nvcc, side by side: K1
+                     (ops/csrc/warp_corr.cu), K2 (warp_corr_bwd.cu) and K3
+                     (warp_corr_pre.cu)
   3. kernel       -- K1 against its plain PyTorch version at the inference
                      path's shapes (and DiffMVS's refinement shape), f32
                      and bf16 features, with CUDA-event times and the bound
@@ -31,8 +32,29 @@ Phases (one line each; any failure exits non-zero):
                      K1 + 28 K2 launches and a finite loss and gradient
                      norm every step; one step's gradients against the
                      same step with the plain warp in place of the kernels
+  9. k3_kernel    -- K3, warp_corr(..., batch_rows=False), its only path:
+                     against its plain version and against K1 on the same
+                     inputs at the sweep / stage-2 / stage-3 DTU shapes, f32
+                     and bf16, degenerate depths in the first row; CUDA-event
+                     times and the bound; batched odd sizes (N=2) through
+                     its four instantiations (f32 float4 and scalar, bf16
+                     two pairs and one pair, aligned and misaligned bases);
+                     the gradients through K3 against those through K1
+                     (both K2) at the training stage-3 shape
+ 10. export       -- the scene export entry point as a user runs it:
+                     cli.test.main on a synthetic DTU-layout scan of 7 views
+                     at 1152x1600 (uint8 .npy serving caches), CasDiffMVS
+                     f32 48/384, 5 views per depth map, random weights from
+                     seed 0, loose fusion thresholds: 28 K1 launches per
+                     view, finite PFM/cam/JPEG files and the fused .ply; the
+                     fusion again on the CPU (masks equal but at pixels
+                     within 1e-4 of a threshold, points within 1e-4), and
+                     accuracy/completeness against a plane on card and CPU;
+                     views/s and its split into load, inference, write and
+                     fusion on the host's and the card's clock
 Then a JSON line of per-kernel numbers (K1's launches from main, K2's from
-train), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+train, K3's from the k3_kernel entry calls), the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
 """
@@ -99,6 +121,17 @@ def warp_bound(n, d, h, w, hs, ws, c, g, feat_bytes):
     nbytes = (n * g * d * h * w * 4 + n * h * w * c * feat_bytes
               + n * hs * ws * c * feat_bytes + n * d * h * w * 4 + n * 48)
     return bound(nbytes, n * d * h * w * (20 + 11 * c + g))
+
+
+def pre_bound(n, d, h, w, hs, ws, c, g, feat_bytes):
+    """K3: the output written once and src, ref and the five corner
+    operands (int32 xi, yi, f32 fx, fy, a validity byte: 17 bytes per
+    plane-pixel) read once, against ~10 operations per plane-pixel, 11 per
+    channel (two y-lerps, the x-lerp, the product-accumulate) and 1 per
+    group mean."""
+    nbytes = (n * g * d * h * w * 4 + n * h * w * c * feat_bytes
+              + n * hs * ws * c * feat_bytes + n * d * h * w * 17)
+    return bound(nbytes, n * d * h * w * (10 + 11 * c + g))
 
 
 def sample_counts(sp, rp, depth, hs, ws):
@@ -228,6 +261,15 @@ def odd_pairs(projs, dev):
     sp = torch.stack([pairs[0, 1], pairs[0, 3]])
     rp = torch.stack([pairs[0, 0], pairs[0, 0]])
     return sp, rp
+
+
+def shifted(t, elems):
+    """A contiguous copy of t whose data starts `elems` elements into its
+    storage (a base off the allocator's alignment)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def grads_of(fn, src, ref, g_out):
@@ -527,6 +569,401 @@ def phase_train(run):
     check(cos > 0.9999, f"train gradients kernel vs plain cosine {cos}")
 
 
+def phase_k3_kernel(run):
+    """K3 (the batch_rows=False mode) against its plain version and K1."""
+    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.ops.correlation import corner_correlate_plain
+    from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
+
+    dev, gen = run["dev"], run["gen"]
+    hh, ww, views = 1152, 1600, 5
+    _, projs, _ = synthetic_inputs(1, views, hh, ww, 384)
+    shapes = {"sweep": ("stage1", 48, 48, 8),
+              "stage2": ("stage2", 4, 32, 4),
+              "stage3": ("stage3", 4, 16, 2)}
+    cases = []
+    for name, (stage, d, c, s) in shapes.items():
+        h, w = hh // s, ww // s
+        pairs = torch.from_numpy(projs[stage]).to(dev)
+        sp, rp = pairs[:, views - 1], pairs[:, 0]
+        depth = make_depth(name, 1, d, h, w, dev, gen)
+        src32 = torch.randn(1, h, w, c, device=dev, generator=gen)
+        ref32 = torch.randn(1, h, w, c, device=dev, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((name, d, c, h, w, sp, rp, depth, src32.to(dt),
+                          ref32.to(dt)))
+
+    # the path: the op's batch_rows=False entry point, counted from 0
+    warp_corr.reset_counts()
+    outs, counts = [], []
+    with torch.inference_mode():
+        for name, d, c, h, w, sp, rp, depth, src, ref in cases:
+            before = warp_corr.pre_launches
+            outs.append(warp_corr.warp_corr(src, ref, sp, rp, depth, 4,
+                                            batch_rows=False))
+            counts.append(warp_corr.pre_launches - before)
+            check(counts[-1] == 1, f"{counts[-1]} K3 launches in one call")
+    torch.cuda.synchronize()
+    check(warp_corr.pre_launches == len(cases) and warp_corr.launches == 0,
+          f"{warp_corr.pre_launches} K3 / {warp_corr.launches} K1 launches")
+    launches = warp_corr.pre_launches
+
+    for (name, d, c, h, w, sp, rp, depth, src, ref), got, count in zip(
+            cases, outs, counts):
+        tag = "f32" if src.dtype == torch.float32 else "bf16"
+        with torch.inference_mode():
+            ops = warp_corr.corner_operands(src, sp, rp, depth)
+            want = corner_correlate_plain(src, ref, *ops, 4)
+            k1 = warp_corr.warp_corr(src, ref, sp, rp, depth, 4)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_k1 = (got - k1).abs().max().item()
+        check(err <= 1e-5, f"K3 {name} {tag} vs plain {err}")
+        check(err_k1 <= 1e-5, f"K3 {name} {tag} vs K1 {err_k1}")
+        check(bool(torch.isfinite(got).all()), "K3 finite")
+        ms = cuda_ms(lambda: warp_corr.launch_pre(src, ref, *ops, 4))
+        entry_ms = cuda_ms(lambda: warp_corr.warp_corr(
+            src, ref, sp, rp, depth, 4, batch_rows=False))
+        rt = warp_corr.projection_scalars(sp, rp)
+        k1_ms = cuda_ms(lambda: warp_corr.warp_corr_rt(src, ref, rt, depth,
+                                                       4))
+        plain_ms = cuda_ms(lambda: corner_correlate_plain(src, ref, *ops, 4))
+        bound_ms, bound_by = pre_bound(1, d, h, w, h, w, c, 4,
+                                       src.element_size())
+        log("k3_kernel", shape=name, dtype=tag, D=d, C=c, hw=f"{h}x{w}",
+            max_abs_err=f"{err:.3e}", vs_k1_max_abs=f"{err_k1:.3e}",
+            ms=f"{ms:.4f}",
+            entry_ms=f"{entry_ms:.4f}", k1_ms=f"{k1_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by)
+        run["k3_rows"].append((f"{name}" if tag == "f32" else f"{name}:bf16",
+                               dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, launches=count)))
+    run["k3_launches"] = launches
+
+    # batched samples with their own projections and odd sizes through all
+    # four instantiations: f32 float4 (C/G = 4) and scalar (C/G = 3, and
+    # C/G = 4 at a base 4 bytes off 16-byte alignment), bf16 two pairs
+    # (C/G = 4) and one pair (C/G = 6, and C/G = 4 at a base 4 bytes off
+    # 8-byte alignment)
+    n, d, h, w = 2, 5, 37, 53
+    sp, rp = odd_pairs(projs, dev)
+    depth = 4.0 + 6.0 * torch.rand(n, d, h, w, device=dev, generator=gen)
+    depth[:, :, 0, :4] = torch.tensor([0.0, -5.0, 1e-30, 1e30], device=dev)
+    odd = []
+    for dt, c, shift in ((torch.float32, 16, 0), (torch.float32, 12, 0),
+                         (torch.float32, 16, 1), (torch.bfloat16, 16, 0),
+                         (torch.bfloat16, 24, 0), (torch.bfloat16, 16, 2)):
+        src = shifted(torch.randn(n, h + 3, w - 2, c, device=dev,
+                                  generator=gen).to(dt), shift)
+        ref = shifted(torch.randn(n, h, w, c, device=dev,
+                                  generator=gen).to(dt), shift)
+        with torch.inference_mode():
+            got = warp_corr.warp_corr(src, ref, sp, rp, depth, 4,
+                                      batch_rows=False)
+            want = corner_correlate_plain(
+                src, ref, *warp_corr.corner_operands(src, sp, rp, depth), 4)
+            k1 = warp_corr.warp_corr(src, ref, sp, rp, depth, 4)
+        torch.cuda.synchronize()
+        tag = f"{'f32' if dt == torch.float32 else 'bf16'}:C{c}+{shift}"
+        err = (got - want).abs().max().item()
+        err_k1 = (got - k1).abs().max().item()
+        check(err <= 1e-5, f"K3 batched_odd {tag} vs plain {err}")
+        check(err_k1 <= 1e-5, f"K3 batched_odd {tag} vs K1 {err_k1}")
+        odd.append(f"{tag}={max(err, err_k1):.1e}")
+    log("k3_kernel", shape="batched_odd", N=n, D=d, hw=f"{h}x{w}",
+        src_hw=f"{h + 3}x{w - 2}", max_abs_err_vs_plain_and_k1=",".join(odd))
+
+    # gradients through K3 against those through K1 (both K2), at the
+    # training stage-3 shape
+    n, d, c, h, w = 4, 4, 16, 256, 320
+    _, tprojs, _ = synthetic_inputs(n, views, 512, 640, 384)
+    pairs = torch.from_numpy(tprojs["stage3"]).to(dev)
+    sp, rp = pairs[:, views - 1], pairs[:, 0]
+    depth = make_depth("stage3", n, d, h, w, dev, gen)
+    src = torch.randn(n, h, w, c, device=dev, generator=gen)
+    ref = torch.randn(n, h, w, c, device=dev, generator=gen)
+    g_out = torch.randn(n, d, h, w, 4, device=dev, generator=gen)
+    before = (warp_corr.pre_launches, warp_corr.bwd_launches)
+    k3 = grads_of(lambda a, b: warp_corr.warp_corr(
+        a, b, sp, rp, depth, 4, batch_rows=False), src, ref, g_out)
+    check((warp_corr.pre_launches - before[0],
+           warp_corr.bwd_launches - before[1]) == (1, 1),
+          "K3 forward + K2 backward")
+    k1 = grads_of(lambda a, b: warp_corr.warp_corr(
+        a, b, sp, rp, depth, 4), src, ref, g_out)
+    torch.cuda.synchronize()
+    cos = cosine(torch.cat([x.flatten() for x in k3]).double(),
+                 torch.cat([x.flatten() for x in k1]).double())
+    diff = max((a - b).abs().max().item() for a, b in zip(k3, k1))
+    check(cos > 0.9999, f"K3 vs K1 gradient cosine {cos}")
+    log("k3_kernel", grad_shape=f"N={n} D={d} C={c} {h}x{w}",
+        grad_cosine_vs_k1=f"{cos:.9f}", grad_max_abs_diff=f"{diff:.3e}")
+
+
+def make_dtu_scan(root, scan, views, hh, ww, seed=0):
+    """A DTU-layout scan: scanN/images/*.npy (uint8 serving caches at the
+    eval size), cams_1/*_cam.txt and a pair.txt that lists, for every view,
+    the other views with scores > 0.1. The cameras sit on a gentle arc
+    (4.6 degrees apart) 650 mm from a point in front of view 0, with
+    DTU-like intrinsics and the DTU depth range 425-935 mm."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    base = root / scan
+    (base / "images").mkdir(parents=True)
+    (base / "cams_1").mkdir()
+    k = np.array([[2892.3, 0.0, ww / 2 + 23.0], [0.0, 2883.2, hh / 2 - 8.0],
+                  [0.0, 0.0, 1.0]], np.float32)
+    center = np.array([0.0, 0.0, 650.0])
+    for i in range(views):
+        th = 0.08 * (i - views // 2)
+        rot_y = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                          [-np.sin(th), 0, np.cos(th)]])
+        cam_center = center + rot_y @ np.array([0.0, 0.0, -650.0])
+        e = np.eye(4)
+        e[:3, :3] = rot_y.T
+        e[:3, 3] = -rot_y.T @ cam_center
+        low = rng.randint(0, 256, (hh // 16, ww // 16, 3)).astype(np.uint8)
+        img = np.kron(low, np.ones((16, 16, 1), np.uint8))
+        np.save(base / "images" / f"{i:08d}.npy", img)
+        with open(base / "cams_1" / f"{i:08d}_cam.txt", "w") as f:
+            f.write("extrinsic\n")
+            for r in range(4):
+                f.write(" ".join(f"{v:.6f}" for v in e[r]) + "\n")
+            f.write("\nintrinsic\n")
+            for r in range(3):
+                f.write(" ".join(f"{v:.6f}" for v in k[r]) + "\n")
+            f.write("\n425.0 2.5 192 935.0\n")
+    with open(base / "pair.txt", "w") as f:
+        f.write(f"{views}\n")
+        for i in range(views):
+            others = sorted((j for j in range(views) if j != i),
+                            key=lambda j: abs(j - i))
+            f.write(f"{i}\n{len(others)} " + " ".join(
+                f"{j} {10.0 / abs(j - i):.2f}" for j in others) + "\n")
+
+
+class Spans:
+    """Time of every call of one function (patched in for the phase,
+    restored by close(), which returns the ms of each call): on the card's
+    clock by CUDA events around it, or with card=False on the host's."""
+
+    def __init__(self, owner, attr, card=True):
+        self.owner, self.attr, self.card = owner, attr, card
+        self.fn = getattr(owner, attr)
+        self.marks = []
+
+        def timed(*args, **kwargs):
+            if self.card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = self.fn(*args, **kwargs)
+                end.record()
+                self.marks.append((start, end))
+            else:
+                t0 = time.perf_counter()
+                out = self.fn(*args, **kwargs)
+                self.marks.append((t0, time.perf_counter()))
+            return out
+
+        setattr(owner, attr, timed)
+
+    def close(self):
+        setattr(self.owner, self.attr, self.fn)
+        if self.card:
+            torch.cuda.synchronize()
+            return [s.elapsed_time(e) for s, e in self.marks]
+        return [(e - s) * 1e3 for s, e in self.marks]
+
+
+def phase_export(run):
+    """cli.test.main at DTU size on a synthetic scan, then the fusion on
+    the CPU and the point-cloud metrics on card and CPU."""
+    import numpy as np
+
+    from PIL import Image
+
+    from diffmvs_tpu_torch.api import DepthRunner
+    from diffmvs_tpu_torch.cli import test as cli
+    from diffmvs_tpu_torch.data import io as data_io
+    from diffmvs_tpu_torch.data import native_io
+    from diffmvs_tpu_torch.data.io import read_pair_file, read_pfm
+    from diffmvs_tpu_torch.fusion import fuse, metrics
+    from diffmvs_tpu_torch.fusion.ply import read_ply
+    from diffmvs_tpu_torch.ops import warp_corr
+
+    hh, ww, views, scan = 1152, 1600, 7, "scan9"
+    root = REPO / "build" / "chip_smoke_export"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_dtu_scan(root / "dtu", scan, views, hh, ww)
+    (root / "test.txt").write_text(scan + "\n")
+    setup_s = time.perf_counter() - t0
+    out = root / "out"
+    thres = dict(geo_mask_thres=1, geo_pixel_thres=8.0, geo_depth_thres=0.5)
+    args = ["--dataset", "dtu", "--testpath", str(root / "dtu"),
+            "--testlist", str(root / "test.txt"), "--save_depth",
+            "--num_view", "5", "--batch_size", "1", "--outdir", str(out),
+            "--workers", "2", "--device", "cuda",
+            "--geo_mask_thres", str(thres["geo_mask_thres"]),
+            "--geo_pixel_thres", str(thres["geo_pixel_thres"]),
+            "--geo_depth_thres", str(thres["geo_depth_thres"]),
+            "--photo_thres", "0", "0", "0"]
+
+    # card spans: the model call, fusion's consistency pass; host spans:
+    # the export's file writes (save_scene_depth imports the codecs when
+    # it runs, so patching data.io reaches it) and fusion's file I/O
+    spans = {"infer_card": Spans(DepthRunner, "__call__"),
+             "fuse_card": Spans(fuse, "_consistency_batch"),
+             "pfm_write": Spans(data_io, "save_pfm", card=False),
+             "cam_write": Spans(data_io, "write_cam", card=False),
+             "jpeg_write": Spans(Image.Image, "save", card=False),
+             "fuse_pfm_read": Spans(fuse, "read_pfm", card=False),
+             "fuse_jpeg_read": Spans(fuse, "read_img", card=False),
+             "fuse_mask_write": Spans(fuse, "save_mask", card=False),
+             "fuse_unproject": Spans(fuse, "_unproject_masked", card=False),
+             "fuse_ply_write": Spans(fuse, "write_ply", card=False)}
+    warp_corr.reset_counts()
+    try:
+        res = cli.main(args)
+    finally:
+        ms = {k: sp.close() for k, sp in spans.items()}
+    infer_card, fuse_card = ms["infer_card"], ms["fuse_card"]
+    k1, by_shape = warp_corr.launches, dict(warp_corr.launches_by_shape)
+    check(k1 == 28 * views, f"{k1} K1 launches for {views} views")
+    check(sorted(by_shape.values()) == [views * 4, views * 12, views * 12],
+          f"K1 by shape {by_shape}")
+    check(warp_corr.bwd_launches == 0 and warp_corr.pre_launches == 0,
+          "only K1 on the export path")
+    exp = res["export"]
+    check(exp["views"] == views and len(infer_card) == views,
+          f"{exp['views']} views exported")
+
+    scan_out = out / scan
+    for i in range(views):
+        for sub in ("depth_est", "conf0", "conf1", "conf2"):
+            arr, _ = read_pfm(str(scan_out / sub / f"{i:08d}.pfm"))
+            check(arr.shape == (hh, ww) and bool(np.isfinite(arr).all()),
+                  f"{sub}/{i:08d}.pfm finite {hh}x{ww}")
+        check((scan_out / "cams" / f"{i:08d}_cam.txt").exists()
+              and (scan_out / "images" / f"{i:08d}.jpg").exists(),
+              f"cam and jpg of view {i}")
+    ply = out / "pc" / "mvs009_l3.ply"
+    check(ply.exists(), f"{ply} written")
+    xyz, _ = read_ply(str(ply))
+    check(xyz.shape[0] == res["points"][str(ply)] > 0
+          and bool(np.isfinite(xyz).all()), "a finite, non-empty cloud")
+
+    # the same fusion on the CPU, view by view, against the card
+    t0 = time.perf_counter()
+    cpu_pts, flips, band, compared = [], 0, 0, 0
+    for ref_view, src_views in read_pair_file(
+            str(root / "dtu" / scan / "pair.txt"), "dtu"):
+        res_dev = []
+        for device in ("cuda", "cpu"):
+            loaded = fuse.load_views(str(scan_out), ref_view, src_views, 10,
+                                     torch.device(device))
+            (k_ref, e_ref, dmax, dmin, ref_depth, k_srcs, e_srcs,
+             d_srcs) = loaded
+            dist, rel, _, _, geo_sum, depth_avg = fuse._consistency_batch(
+                ref_depth, k_ref, e_ref, d_srcs, k_srcs, e_srcs, dmax, dmin,
+                thres["geo_pixel_thres"], thres["geo_depth_thres"])
+            res_dev.append((dist.cpu(), rel.cpu(), geo_sum.cpu(),
+                            depth_avg.cpu(), k_ref.cpu().numpy(),
+                            e_ref.cpu().numpy()))
+        (_, _, geo_cuda, avg_cuda, _, _), (dist, rel, geo_cpu, avg_cpu,
+                                           k_ref, e_ref) = res_dev
+        near = ((dist - thres["geo_pixel_thres"]).abs()
+                <= 1e-4 * thres["geo_pixel_thres"]) | (
+            (rel - thres["geo_depth_thres"]).abs()
+            <= 1e-4 * thres["geo_depth_thres"])
+        near = near.any(0)
+        mask_cpu = geo_cpu >= thres["geo_mask_thres"]
+        mask_cuda = geo_cuda >= thres["geo_mask_thres"]
+        differ = mask_cpu != mask_cuda
+        check(not bool((differ & ~near).any()),
+              f"view {ref_view}: masks differ away from the thresholds")
+        flips += int(differ.sum())
+        band += int(near.sum())
+        common = mask_cpu & mask_cuda
+        compared += int(common.sum())
+        rel_avg = ((avg_cuda - avg_cpu).abs()
+                   / avg_cpu.abs().clamp_min(1e-12))[common]
+        check(rel_avg.numel() == 0 or rel_avg.max().item() <= 1e-4,
+              f"view {ref_view}: depth averages differ {rel_avg.max()}")
+        photo = fuse._photo_mask(str(scan_out), ref_view, (0.0, 0.0, 0.0),
+                                 "casdiffmvs")
+        pts, _ = fuse._unproject_masked(avg_cpu.numpy(),
+                                        photo & mask_cpu.numpy(),
+                                        np.zeros((hh, ww, 3)), k_ref, e_ref)
+        cpu_pts.append(pts)
+    cpu_pts = np.concatenate(cpu_pts)
+    if cpu_pts.shape[0] == xyz.shape[0]:
+        rel_pts = (np.linalg.norm(xyz - cpu_pts, axis=1)
+                   / np.linalg.norm(cpu_pts, axis=1)).max()
+        check(rel_pts <= 1e-4, f"card vs CPU points rel {rel_pts}")
+    else:
+        rel_pts = float("nan")
+        check(abs(cpu_pts.shape[0] - xyz.shape[0]) <= flips,
+              "point counts differ by more than the flipped pixels")
+    cpu_fuse_s = time.perf_counter() - t0
+
+    # accuracy / completeness against a plane through the object point,
+    # on card and CPU (the cloud thinned to <= 20k points for the CPU)
+    gt = metrics.sample_mesh_plane(650.0, (-180.0, 180.0), (-130.0, 130.0),
+                                   3.0)
+    pred = xyz[::max(1, xyz.shape[0] // 20000)]
+    t0 = time.perf_counter()
+    m_cuda = metrics.accuracy_completeness(pred, gt, max_dist=1000.0,
+                                           tau=10.0, device="cuda")
+    nn_cuda_s = time.perf_counter() - t0
+    m_cpu = metrics.accuracy_completeness(pred, gt, max_dist=1000.0,
+                                          tau=10.0, device="cpu")
+    for key, v in m_cuda.items():
+        check(math.isclose(v, m_cpu[key], rel_tol=1e-5, abs_tol=1e-9),
+              f"{key}: card {v} vs CPU {m_cpu[key]}")
+
+    batches = exp["batches"]
+    steady = batches[1:]
+    steady_s = sum(b["load_s"] + b["infer_s"] + b["write_s"] for b in steady)
+    all_s = exp["load_s"] + exp["infer_s"] + exp["write_s"]
+
+    def per_view_ms(key):
+        return 1e3 * sum(b[key] for b in steady) / len(steady)
+
+    log("export", views=views, hw=f"{hh}x{ww}", src_views=4, setup_s=(
+        f"{setup_s:.2f}"), decoder=native_io.decoder(),
+        native_build=repr(native_io.build_error or "ok"),
+        views_per_s=f"{views / all_s:.3f}",
+        views_per_s_steady=f"{len(steady) / steady_s:.3f}",
+        load_ms=f"{per_view_ms('load_s'):.1f}",
+        infer_ms=f"{per_view_ms('infer_s'):.1f}",
+        write_ms=f"{per_view_ms('write_s'):.1f}",
+        first_view_s=f"{sum(batches[0][k] for k in ('load_s', 'infer_s', 'write_s')):.2f}",
+        infer_card_ms=f"{statistics.mean(infer_card[1:]):.1f}",
+        fusion_s=f"{res['fusion_s']:.3f}",
+        fusion_card_ms_per_view=f"{statistics.mean(fuse_card):.2f}",
+        k1_launches=k1, k1_per_view=k1 // views, points=xyz.shape[0])
+    # host ms per view (the mask PNGs are written through PIL too, so
+    # jpeg_write less fuse_mask_write is the export's reference JPEGs)
+    per_view = {k: sum(v) / views for k, v in ms.items()
+                if k not in ("infer_card", "fuse_card")}
+    log("export", host_ms_per_view=repr(
+        {k: round(v, 1) for k, v in per_view.items()}),
+        jpeg_export_ms=f"{per_view['jpeg_write'] - per_view['fuse_mask_write']:.1f}")
+    log("export", cpu_fusion_s=f"{cpu_fuse_s:.1f}", mask_flips=flips,
+        threshold_band_pixels=band, compared_pixels=compared,
+        points_cpu=cpu_pts.shape[0], points_max_rel=f"{rel_pts:.3e}",
+        nn_points=f"{pred.shape[0]}x{gt.shape[0]}",
+        nn_card_s=f"{nn_cuda_s:.3f}",
+        acc_mean=f"{m_cuda['acc_mean']:.4f}",
+        comp_mean=f"{m_cuda['comp_mean']:.4f}",
+        acc_rel_card_cpu=f"{abs(m_cuda['acc_mean'] - m_cpu['acc_mean']) / abs(m_cpu['acc_mean']):.3e}")
+
+
 def main():
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -557,10 +994,11 @@ def main():
 
     dev = torch.device("cuda")
     run = {"dev": dev, "gen": torch.Generator(device=dev).manual_seed(0),
-           "k1_rows": {}, "k2_rows": {}, "k1_launches": {},
+           "k1_rows": {}, "k2_rows": {}, "k3_rows": [], "k1_launches": {},
            "k2_launches": {}}
     for phase in (phase_kernel, phase_train_kernel, phase_small, phase_main,
-                  phase_train_small, phase_train):
+                  phase_train_small, phase_train, phase_k3_kernel,
+                  phase_export):
         phase(run)
 
     kernels = []
@@ -580,7 +1018,16 @@ def main():
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None})
-    check(len(kernels) == 6, f"{len(kernels)} kernel rows")
+    for name, r in run["k3_rows"]:
+        kernels.append({
+            "name": f"warp_corr_pre:{name}", "route": "cuda",
+            "source": "diffmvs_tpu_torch/ops/csrc/warp_corr_pre.cu",
+            "replaces": "diffmvs_tpu/ops/pallas/warp_corr.py:55",
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    check(len(kernels) == 12, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

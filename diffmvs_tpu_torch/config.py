@@ -5,7 +5,8 @@ Counterpart of diffmvs_tpu/config.py without the TPU layout flags (warp
 kernel selection, s2d layouts, unrolling, remat): the port computes each
 operation once, in NCHW, and the plane-sweep warp always goes through
 ops.correlation.warp_and_correlate. TrainConfig leaves out the device
-mesh (dp/sp): data-parallel training is not ported yet.
+mesh (dp/sp): data-parallel training is not ported yet. EvalConfig and the
+per-scene fusion tables serve cli/test.py.
 
 Per-stage hyperparameters are 3-tuples indexed by stage (stage 0 = 1/8-res
 initialization, stage 1 = 1/4-res refinement, stage 2 = 1/2-res
@@ -96,6 +97,24 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Inference / benchmark-evaluation configuration (the reference's
+    test.py flags)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    dataset: str = "general"       # dtu | tank | eth3d | general
+    num_view: int = 5
+    max_h: int = 4800
+    max_w: int = 6400
+
+    # fusion / post-processing
+    geo_mask_thres: int = 2
+    geo_pixel_thres: float = 1.0
+    geo_depth_thres: float = 0.01
+    photo_thres: Triple = (0.3, 0.0, 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training configuration (the reference's train.py flags)."""
 
@@ -178,4 +197,36 @@ EVAL_RESOLUTIONS = {
     "dtu": (1600, 1152),     # (W, H)
     "tank": (1920, 1056),
     "eth3d": (1920, 1280),
+}
+
+# Per-scene fusion hyperparameters for Tanks&Temples and ETH3D (the
+# reference's test.py and filter.py)
+TANK_PHOTO_THRES = {
+    "Family": (0.8, 0.8, 0.95), "Francis": (0.3, 0.6, 0.6),
+    "Horse": (0.15, 0.4, 0.8), "Lighthouse": (0.3, 0.8, 0.9),
+    "M60": (0.7, 0.8, 0.95), "Panther": (0.3, 0.3, 0.95),
+    "Playground": (0.3, 0.8, 0.9), "Train": (0.3, 0.6, 0.95),
+    "Auditorium": (0.0, 0.0, 0.0), "Ballroom": (0.3, 0.3, 0.5),
+    "Courtroom": (0.0, 0.2, 0.2), "Museum": (0.3, 0.3, 0.7),
+    "Palace": (0.3, 0.3, 0.4), "Temple": (0.3, 0.5, 0.5),
+}
+TANK_DYNAMIC_PARAMS = {  # (dh_view_num, dist_div, rel_diff_div)
+    "Family": (2, 12, 1600), "Francis": (9, 8, 1600), "Horse": (2, 4, 1300),
+    "Lighthouse": (6, 8, 1600), "M60": (4, 8, 1600), "Panther": (3, 4, 1300),
+    "Playground": (6, 8, 1600), "Train": (3, 4, 1600),
+    "Auditorium": (2, 4, 1300), "Ballroom": (2, 4, 1300),
+    "Courtroom": (2, 4, 1300), "Museum": (2, 4, 1300),
+    "Palace": (2, 4, 1300), "Temple": (1, 4, 1500),
+}
+ETH3D_GEO_MASK_THRES = {
+    "bridge": 2,
+}  # default 1 for all other ETH3D scenes
+ETH3D_GEO_PIXEL_THRES = {
+    "courtyard": 0.5, "delivery_area": 0.5, "electro": 1, "facade": 1,
+    "kicker": 1, "meadow": 2, "office": 2, "pipes": 2, "playground": 1,
+    "relief": 1, "relief_2": 1, "terrace": 0.5, "terrains": 1,
+    "botanical_garden": 1, "boulders": 0.5, "bridge": 0.5, "door": 0.5,
+    "exhibition_hall": 0.5, "lecture_room": 0.5, "living_room": 0.5,
+    "lounge": 2, "observatory": 1, "old_computer": 2, "statue": 1,
+    "terrace_2": 0.5,
 }

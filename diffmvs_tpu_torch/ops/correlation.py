@@ -10,9 +10,15 @@ group_correlation), whose autograd is the oracle for the kernels' gradient;
 CUDA tensors, with or without gradient, go to the autograd Function in
 ops/warp_corr.py (forward kernel K1, backward kernel K2), which launches or
 raises.
+
+corner_correlate_plain is the plain version of K3, the kernel of
+ops/warp_corr.warp_corr(..., batch_rows=False): the same function from
+precomputed corner operands, in the TPU kernel's interpolation order.
 """
 
 from __future__ import annotations
+
+import torch
 
 from diffmvs_tpu_torch.geometry.sampling import bilinear_sample
 from diffmvs_tpu_torch.geometry.transforms import relative_projection
@@ -45,6 +51,44 @@ def warp_and_correlate_plain(src_fea, ref_fea, src_pair, ref_pair,
     x, y = plane_sweep_coords(rot, trans, depth_values)
     warped = bilinear_sample(src_fea, x, y)
     return group_correlation(warped, ref_fea, groups)
+
+
+def corner_correlate_plain(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
+    """K3's plain version: warp + group correlation from corner operands.
+
+    src_fea [B, Hs, Ws, C], ref_fea [B, H, W, C] (float32 or bfloat16,
+    computed in float32); xi, yi, fx, fy, valid [B, D, H, W] as
+    ops/warp_corr.corner_split gives them. Interpolates in the TPU
+    kernel's order (the two y-lerps (1 - fy) * top + fy * bottom, then
+    left + (right - left) * fx); each corner outside the image reads zero.
+    For bfloat16 features each group's sum is the sum over its even
+    channels plus the sum over its odd ones, as the packed kernel pairs
+    them. Returns [B, D, H, W, G] float32.
+    """
+    b, hs, ws, c = src_fea.shape
+    _, d, h, w = xi.shape
+    src = src_fea.float().reshape(b, hs * ws, c)
+    bidx = torch.arange(b, device=src.device)[:, None]
+
+    def corner(xc, yc):
+        ok = (xc >= 0) & (xc < ws) & (yc >= 0) & (yc < hs)
+        idx = (yc.clamp(0, hs - 1) * ws + xc.clamp(0, ws - 1)).reshape(b, -1)
+        vals = src[bidx, idx.long()].reshape(b, d, h, w, c)
+        return torch.where(ok[..., None], vals, torch.zeros_like(vals))
+
+    x0, y0 = xi - 1, yi - 1
+    wx, wy = fx[..., None], fy[..., None]
+    gy = 1.0 - wy
+    left = corner(x0, y0) * gy + corner(x0, yi) * wy
+    right = corner(xi, y0) * gy + corner(xi, yi) * wy
+    warped = left + (right - left) * wx
+    warped = torch.where(valid[..., None], warped, torch.zeros_like(warped))
+    prod = warped * ref_fea.float()[:, None]
+    cg = c // groups
+    if src_fea.dtype == torch.bfloat16:
+        pairs = prod.reshape(b, d, h, w, groups, cg // 2, 2).sum(-2)
+        return (pairs[..., 0] + pairs[..., 1]) / cg
+    return prod.reshape(b, d, h, w, groups, cg).sum(-1) / cg
 
 
 def warp_and_correlate(src_fea, ref_fea, src_pair, ref_pair, depth_values,

@@ -1,14 +1,23 @@
 """Hand-written CUDA kernels for the fused plane-sweep warp + group
-correlation: the forward (K1), its backward (K2), their build and their
-binding, and the autograd Function that joins them.
+correlation: the forward (K1), its backward (K2), the forward from
+precomputed corner operands (K3), their build and their binding, and the
+autograd Functions that join them.
 
-Counterparts of the TPU kernels `_corr_kernel_rowbatch`
+Counterparts of the TPU kernels `_corr_kernel_rowbatch`, `_corr_kernel`
 (diffmvs_tpu/ops/pallas/warp_corr.py) and `_bwd_kernel`
 (diffmvs_tpu/ops/pallas/warp_corr_bwd.py). The sources are
-ops/csrc/warp_corr.cu (K1) and ops/csrc/warp_corr_bwd.cu (K2); both
-include ops/csrc/warp_geom.cuh, so the backward samples at the forward's
-coordinates bit for bit. Their header notes say what bounds them and how
-they are laid out.
+ops/csrc/warp_corr.cu (K1), ops/csrc/warp_corr_bwd.cu (K2) and
+ops/csrc/warp_corr_pre.cu (K3); all include ops/csrc/warp_geom.cuh: K1
+and K2 share its coordinate code, so the backward samples at the
+forward's coordinates bit for bit, and K3 its channel loads. Their header
+notes say what bounds them and how they are laid out.
+
+Two modes, as warp_corr_pallas(..., batch_rows=...) has them:
+  * batch_rows=True (the model's path): K1 computes the coordinates in the
+    kernel from the depths and 12 projection scalars;
+  * batch_rows=False: plane_sweep_coords and corner_split compute the
+    corners, fractions and validity as [N, D, H, W] tensors, and K3 reads
+    them. CPU tensors take K3's plain version (ops/correlation.py).
 
 Build: on the first CUDA call, nvcc compiles each .cu file into a shared
 library with a plain C interface under <repo>/build/diffmvs_tpu_torch/
@@ -17,10 +26,11 @@ sources and the flags, and ctypes loads them. Nothing is built or loaded
 when this module is imported, so it imports on hosts without nvcc or a
 card.
 
-Gradients: warp_corr() runs K1 inside WarpCorr, a torch.autograd.Function
-whose backward launches K2 for the feature gradients and gives the
-projections and the depths none (the coordinates are stop-gradient'ed,
-as in the reference). K2 takes float32 features only.
+Gradients: warp_corr() runs K1 inside WarpCorr (K3 inside WarpCorrPre),
+torch.autograd.Functions whose backward launches K2 for the feature
+gradients and gives the projections, the depths and the corner operands
+none (the coordinates are stop-gradient'ed, as in the reference). K2
+takes float32 features only.
 """
 
 from __future__ import annotations
@@ -37,33 +47,41 @@ from pathlib import Path
 import torch
 
 from diffmvs_tpu_torch.geometry.transforms import relative_projection
+from diffmvs_tpu_torch.geometry.warp import plane_sweep_coords
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"warp_corr": CSRC / "warp_corr.cu",          # K1
-           "warp_corr_bwd": CSRC / "warp_corr_bwd.cu"}  # K2
+           "warp_corr_bwd": CSRC / "warp_corr_bwd.cu",  # K2
+           "warp_corr_pre": CSRC / "warp_corr_pre.cu"}  # K3
 HEADERS = (CSRC / "warp_geom.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "diffmvs_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launch counters: `launches` counts every K1 launch, `bwd_launches` every
-# K2 launch; the Counters split the same launches by (D, H, W, C) shape
+# K2 launch, `pre_launches` every K3 launch; the Counters split the same
+# launches by (D, H, W, C) shape
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 bwd_launches = 0
 bwd_launches_by_shape: collections.Counter = collections.Counter()
+pre_launches = 0
+pre_launches_by_shape: collections.Counter = collections.Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 _bwd_lib = None
+_pre_lib = None
 
 
 def reset_counts():
-    global launches, bwd_launches
+    global launches, bwd_launches, pre_launches
     launches = 0
     bwd_launches = 0
+    pre_launches = 0
     launches_by_shape.clear()
     bwd_launches_by_shape.clear()
+    pre_launches_by_shape.clear()
 
 
 def nvcc_path() -> str:
@@ -116,6 +134,7 @@ def build() -> dict:
 
 
 def _load():
+    """(K1, K2) libraries; K3's comes from _load_pre(). Builds all three."""
     global _lib, _bwd_lib
     if _lib is None:
         libs = build()
@@ -132,6 +151,18 @@ def _load():
     return _lib, _bwd_lib
 
 
+def _load_pre():
+    global _pre_lib
+    if _pre_lib is None:
+        lib = ctypes.CDLL(str(build()["warp_corr_pre"]))
+        lib.warp_corr_pre_forward.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            + [ctypes.c_void_p])
+        lib.warp_corr_pre_forward.restype = ctypes.c_int
+        _pre_lib = lib
+    return _pre_lib
+
+
 def projection_scalars(src_pair, ref_pair):
     """[N, 12] float32 (rot row-major | trans) of src <- ref, without
     gradient (the coordinates are stop-gradient'ed)."""
@@ -142,16 +173,23 @@ def projection_scalars(src_pair, ref_pair):
                          1).contiguous()
 
 
-def warp_corr(src_fea, ref_fea, src_pair, ref_pair, depth_values, groups):
-    """Kernel launch of warp_and_correlate (CUDA tensors only).
+def warp_corr(src_fea, ref_fea, src_pair, ref_pair, depth_values, groups,
+              batch_rows: bool = True):
+    """Kernel launch of warp_and_correlate.
 
     src_fea [N, Hs, Ws, C], ref_fea [N, H, W, C]: contiguous, float32 or
     bfloat16 (the same for both; float32 where a gradient is needed);
     depth_values [N, D, H, W] contiguous float32; src_pair/ref_pair
     [N, 2, 4, 4].
+    batch_rows=True launches K1 (CUDA tensors only); batch_rows=False goes
+    through warp_corr_pre (K3 on CUDA tensors, its plain version on CPU
+    tensors).
     Returns [N, D, H, W, G] float32: a view of a contiguous
     [N, G, D, H, W] buffer, differentiable in the two feature maps.
     """
+    if not batch_rows:
+        return warp_corr_pre(src_fea, ref_fea, src_pair, ref_pair,
+                             depth_values, groups)
     return warp_corr_rt(src_fea, ref_fea,
                         projection_scalars(src_pair, ref_pair),
                         depth_values, groups)
@@ -160,12 +198,16 @@ def warp_corr(src_fea, ref_fea, src_pair, ref_pair, depth_values, groups):
 def warp_corr_rt(src_fea, ref_fea, rt, depth_values, groups):
     """warp_corr with the projection already packed as [N, 12] scalars."""
     _check_forward(src_fea, ref_fea, rt, depth_values, groups)
+    _check_grad_dtype(src_fea, ref_fea)
+    return WarpCorr.apply(src_fea, ref_fea, rt, depth_values, groups)
+
+
+def _check_grad_dtype(src_fea, ref_fea):
     if (torch.is_grad_enabled()
             and (src_fea.requires_grad or ref_fea.requires_grad)
             and src_fea.dtype != torch.float32):
         raise TypeError("warp_corr: the backward kernel takes float32 "
                         f"features only, got {src_fea.dtype}")
-    return WarpCorr.apply(src_fea, ref_fea, rt, depth_values, groups)
 
 
 class WarpCorr(torch.autograd.Function):
@@ -279,3 +321,141 @@ def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups):
     bwd_launches += 1
     bwd_launches_by_shape[(d, h, w, c)] += 1
     return d_src, d_ref
+
+
+# ---------------------------------------------------------------------------
+# K3: the batch_rows=False mode
+# ---------------------------------------------------------------------------
+
+def corner_split(x, y, hs, ws):
+    """Integer corners into the 1-padded source, fractions and validity
+    (diffmvs_tpu/ops/pallas/warp_corr.py:_corner_split).
+
+    x, y: [N, D, H, W] float32 source coordinates. Returns (xi, yi) int32
+    in [0, ws] / [0, hs] (the original x0 + 1, y0 + 1), (fx, fy) float32
+    and valid bool (some corner lies in the image), each [N, D, H, W].
+    Validity is decided in float before the integer cast, so NaN and huge
+    coordinates are invalid; invalid samples carry xi = yi = 0 and zero
+    fractions. (JAX's cast saturates, which makes them invalid too, except
+    a NaN coordinate, which it turns into corner 0 with a NaN fraction.)
+    """
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    valid = (x0 >= -1) & (x0 <= ws - 1) & (y0 >= -1) & (y0 <= hs - 1)
+    zero = torch.zeros_like(x)
+    fx = torch.where(valid, x - x0, zero)
+    fy = torch.where(valid, y - y0, zero)
+    xi = torch.where(valid, x0, zero - 1.0).to(torch.int32) + 1
+    yi = torch.where(valid, y0, zero - 1.0).to(torch.int32) + 1
+    return xi, yi, fx, fy, valid
+
+
+def corner_operands(src_fea, src_pair, ref_pair, depth_values):
+    """(xi, yi, fx, fy, valid) of one source view, without gradient: the
+    operands K3 and its plain version read."""
+    hs, ws = src_fea.shape[1], src_fea.shape[2]
+    with torch.no_grad():
+        rot, trans = relative_projection(src_pair.float(), ref_pair.float())
+        x, y = plane_sweep_coords(rot, trans, depth_values)
+        return corner_split(x, y, hs, ws)
+
+
+def warp_corr_pre(src_fea, ref_fea, src_pair, ref_pair, depth_values,
+                  groups):
+    """warp_corr(..., batch_rows=False): the corner operands, then K3.
+
+    Same arguments and result as warp_corr. On CPU tensors it returns K3's
+    plain version (ops/correlation.corner_correlate_plain); on CUDA
+    tensors it launches K3 (inside WarpCorrPre, whose backward is K2) or
+    raises.
+    """
+    ops = corner_operands(src_fea, src_pair, ref_pair, depth_values)
+    if src_fea.device.type == "cpu":
+        from diffmvs_tpu_torch.ops.correlation import corner_correlate_plain
+        return corner_correlate_plain(src_fea, ref_fea, *ops, groups)
+    _check_grad_dtype(src_fea, ref_fea)
+    return WarpCorrPre.apply(src_fea, ref_fea, *ops,
+                             projection_scalars(src_pair, ref_pair),
+                             depth_values, groups)
+
+
+class WarpCorrPre(torch.autograd.Function):
+    """K3 forward, K2 backward: K2 is the gradient of the exact forward at
+    the coordinates K1 computes, which corner_split's operands reproduce
+    bit for bit. No gradient for the operands, projections or depths."""
+
+    @staticmethod
+    def forward(ctx, src_fea, ref_fea, xi, yi, fx, fy, valid, rt,
+                depth_values, groups):
+        out = launch_pre(src_fea, ref_fea, xi, yi, fx, fy, valid, groups)
+        ctx.save_for_backward(src_fea, ref_fea, rt, depth_values)
+        ctx.groups = groups
+        return out.permute(0, 2, 3, 4, 1)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        d_src, d_ref, *_ = WarpCorr.backward(ctx, grad_out)
+        return (d_src, d_ref) + (None,) * 8
+
+
+def launch_pre(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
+    """K3 (CUDA tensors only): returns the contiguous [N, G, D, H, W]
+    float32 buffer.
+
+    src_fea [N, Hs, Ws, C], ref_fea [N, H, W, C] contiguous float32 or
+    bfloat16 (bfloat16 needs an even C/G: channel pairs); xi, yi int32,
+    fx, fy float32, valid bool, each contiguous [N, D, H, W], as
+    corner_split gives them.
+    """
+    global pre_launches
+    operands = (xi, yi, fx, fy, valid)
+    tensors = (src_fea, ref_fea) + operands
+    dev = src_fea.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("warp_corr_pre: all tensors must be on one CUDA "
+                         "device")
+    if src_fea.dtype not in _DTYPE_CODE or ref_fea.dtype != src_fea.dtype:
+        raise TypeError(f"warp_corr_pre: features must both be float32 or "
+                        f"bfloat16, got {src_fea.dtype}/{ref_fea.dtype}")
+    want = (torch.int32, torch.int32, torch.float32, torch.float32,
+            torch.bool)
+    if tuple(t.dtype for t in operands) != want:
+        raise TypeError("warp_corr_pre: operands must be int32 xi, yi, "
+                        "float32 fx, fy and bool valid")
+    if src_fea.dim() != 4 or ref_fea.dim() != 4 or xi.dim() != 4:
+        raise ValueError("warp_corr_pre: expected 4-D features and operands")
+    n, hs, ws, c = src_fea.shape
+    _, d, h, w = xi.shape
+    if (tuple(ref_fea.shape) != (n, h, w, c)
+            or any(tuple(t.shape) != (n, d, h, w) for t in operands)):
+        raise ValueError(
+            f"warp_corr_pre: shapes src {tuple(src_fea.shape)} ref "
+            f"{tuple(ref_fea.shape)} operands {tuple(xi.shape)} do not agree")
+    if groups <= 0 or c % groups != 0 or hs == 0 or ws == 0:
+        raise ValueError(f"warp_corr_pre: C={c} not divisible by G={groups} "
+                         f"or empty source")
+    if src_fea.dtype == torch.bfloat16 and (
+            (c // groups) % 2 or src_fea.data_ptr() % 4
+            or ref_fea.data_ptr() % 4):
+        raise ValueError("warp_corr_pre: bfloat16 features are read as "
+                         "channel pairs: C/G must be even and the tensors "
+                         "4-byte aligned")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("warp_corr_pre: inputs must be contiguous")
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        raise RuntimeError("warp_corr_pre: built for sm_90a (H100/H200) only")
+    lib = _load_pre()
+    out = torch.empty((n, groups, d, h, w), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.warp_corr_pre_forward(
+            _DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
+            ref_fea.data_ptr(), xi.data_ptr(), yi.data_ptr(), fx.data_ptr(),
+            fy.data_ptr(), valid.data_ptr(), out.data_ptr(), n, d, h, w, hs,
+            ws, c, groups, stream)
+    if err != 0:
+        raise RuntimeError(f"warp_corr_pre: kernel launch failed, cudaError "
+                           f"{err}")
+    pre_launches += 1
+    pre_launches_by_shape[(d, h, w, c)] += 1
+    return out

@@ -6,7 +6,10 @@ the CPU (the port's plain paths). Tolerances:
     the same float32 ops in the same order, only FMA contraction on the
     XLA side may differ;
   * warp + correlation rtol 1e-4 / atol 1e-5: the Pallas kernel
-    interpolates y-then-x, the plain path x-then-y.
+    interpolates y-then-x, the plain path x-then-y;
+  * K3's plain version (batch_rows=False) against the K1 plain path
+    rtol 1e-5 / atol 1e-6: the same coordinates, the two interpolation
+    orders and sum orders differ only in rounding.
 """
 
 import os
@@ -25,7 +28,9 @@ from diffmvs_tpu.geometry import upsample as jupsample
 from diffmvs_tpu.geometry import warp as jwarp
 from diffmvs_tpu.ops import correlation as jcorr
 from diffmvs_tpu.ops import softargmax as jsoftargmax
-from diffmvs_tpu.ops.pallas.warp_corr import warp_corr_pallas
+from diffmvs_tpu.ops.pallas.warp_corr import (_corner_split,
+                                              warp_corr_miss_fraction,
+                                              warp_corr_pallas)
 
 from diffmvs_tpu_torch.geometry import sampling, transforms, upsample, warp
 from diffmvs_tpu_torch.ops import correlation, softargmax, warp_corr
@@ -197,9 +202,120 @@ def test_kernel_module_imports_without_nvcc():
     and loaded on the first CUDA call only."""
     code = ("import diffmvs_tpu_torch.ops.warp_corr as w; "
             "assert w._lib is None and w._bwd_lib is None; "
-            "assert w.launches == 0 and w.bwd_launches == 0; "
+            "assert w._pre_lib is None; "
+            "assert w.launches == w.bwd_launches == w.pre_launches == 0; "
             "assert all(p.exists() for p in w.SOURCES.values()); "
             "assert all(p.exists() for p in w.HEADERS)")
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=os.path.dirname(os.path.dirname(__file__)))
+
+
+# ---------------------------------------------------------------------------
+# K3: warp_corr(..., batch_rows=False) and its plain version
+# ---------------------------------------------------------------------------
+
+def test_corner_split_matches_jax(rng):
+    hs, ws = 9, 13
+    x = rng.uniform(-3.0, ws + 2.0, (2, 3, 5, 7)).astype(np.float32)
+    y = rng.uniform(-3.0, hs + 2.0, (2, 3, 5, 7)).astype(np.float32)
+    x[0, 0, 0, :4] = [-1.0, -0.5, ws - 1.0, ws - 0.5]   # corner boundaries
+    want = [np.asarray(a) for a in _corner_split(x, y, hs, ws)]
+    got = [_np(a) for a in warp_corr.corner_split(T(x), T(y), hs, ws)]
+    np.testing.assert_array_equal(got[4], want[4])          # validity
+    v = want[4]
+    assert 0 < v.mean() < 1
+    for g, w in zip(got[:4], want[:4]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g[v], w[v])
+
+
+def test_corner_split_decides_validity_before_the_cast():
+    x = torch.tensor([[[[float("nan"), float("inf"), -float("inf"),
+                         1e30, -1e30, 2.5]]]])
+    y = torch.full_like(x, 1.5)
+    xi, yi, fx, fy, valid = warp_corr.corner_split(x, y, 4, 6)
+    assert valid.tolist() == [[[[False] * 5 + [True]]]]
+    assert xi[..., :5].eq(0).all() and fx[..., :5].eq(0).all()
+    assert (xi[..., 5].item(), fx[..., 5].item()) == (3, 0.5)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["f32", "packed_bf16"])
+def test_k3_plain_matches_jax_k3(rng, packed):
+    """K3's plain version against the TPU kernel `_corr_kernel` in
+    interpret mode (warp_corr_pallas(batch_rows=False)), on a refinement
+    geometry where its windows and bands miss no sample."""
+    src, ref, sp, rp, depths, _ = _corr_case(rng, "refine")
+    miss = warp_corr_miss_fraction(src, sp, rp, depths, window_group=0,
+                                   tile=64)
+    assert float(miss) == 0.0
+    if packed:
+        src = np.array(jnp.asarray(src, jnp.bfloat16).astype(jnp.float32))
+        ref = np.array(jnp.asarray(ref, jnp.bfloat16).astype(jnp.float32))
+        jsrc, jref = (jnp.asarray(a, jnp.bfloat16) for a in (src, ref))
+        tsrc, tref = (T(a).to(torch.bfloat16) for a in (src, ref))
+    else:
+        jsrc, jref, tsrc, tref = src, ref, T(src), T(ref)
+    want = np.asarray(jax.jit(lambda *a: warp_corr_pallas(
+        *a, 4, batch_rows=False, packed=packed, interpret=True))(
+            jsrc, jref, sp, rp, depths))
+    got = warp_corr.warp_corr(tsrc, tref, T(sp), T(rp), T(depths), 4,
+                              batch_rows=False)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(_np(got), want, **CORR_TOL)
+
+
+@pytest.mark.parametrize("case", ["refine", "sweep"])
+def test_k3_plain_matches_k1_plain(rng, case):
+    """Same coordinates, K3's interpolation order against K1's plain path,
+    with degenerate depths (zero, behind the camera, tiny, huge) in the
+    first row: both give zero there."""
+    src, ref, sp, rp, depths, _ = _corr_case(rng, case)
+    depths = depths.copy()
+    depths[:, :, 0, :4] = [0.0, -5.0, 1e-30, 1e30]
+    args = (T(src), T(ref), T(sp), T(rp), T(depths), 4)
+    got = warp_corr.warp_corr(*args, batch_rows=False)
+    want = correlation.warp_and_correlate_plain(*args)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    assert torch.isfinite(got).all()
+
+
+def test_k3_plain_gradient_matches_k1_plain(rng):
+    src, ref, sp, rp, depths, _ = _corr_case(rng, "refine")
+    g_out = T(rng.randn(1, 4, 48, 128, 4).astype(np.float32))
+
+    def grads(fn):
+        s = T(src).requires_grad_()
+        r = T(ref).requires_grad_()
+        return torch.autograd.grad(fn(s, r), (s, r), g_out)
+
+    got = grads(lambda s, r: warp_corr.warp_corr(
+        s, r, T(sp), T(rp), T(depths), 4, batch_rows=False))
+    want = grads(lambda s, r: correlation.warp_and_correlate_plain(
+        s, r, T(sp), T(rp), T(depths), 4))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **TOL)
+
+
+def test_k3_mode_takes_plain_path_on_cpu(rng, monkeypatch):
+    src, ref, sp, rp, depths, _ = _corr_case(rng, "refine")
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("K3 launched for CPU tensors")
+
+    monkeypatch.setattr(warp_corr, "launch_pre", no_kernel)
+    monkeypatch.setattr(warp_corr, "warp_corr_rt", no_kernel)
+    before = warp_corr.pre_launches
+    got = warp_corr.warp_corr(T(src), T(ref), T(sp), T(rp), T(depths), 4,
+                              batch_rows=False)
+    ops = warp_corr.corner_operands(T(src), T(sp), T(rp), T(depths))
+    want = correlation.corner_correlate_plain(T(src), T(ref), *ops, 4)
+    assert torch.equal(got, want)
+    assert warp_corr.pre_launches == before
+
+
+def test_k3_kernel_refuses_cpu_tensors(rng):
+    src, ref, sp, rp, depths, _ = _corr_case(rng, "refine")
+    ops = warp_corr.corner_operands(T(src), T(sp), T(rp), T(depths))
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_corr.launch_pre(T(src), T(ref), *ops, 4)
