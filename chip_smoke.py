@@ -10,12 +10,19 @@ Phases (one line each; any failure exits non-zero):
                      (warp_corr_pre.cu)
   3. kernel       -- K1 against its plain PyTorch version at the inference
                      path's shapes (and DiffMVS's refinement shape), f32
-                     and bf16 features, with CUDA-event times and the bound
+                     and bf16 features, with CUDA-event times (ms: L2 warm,
+                     the host's launch gap included; card_ms: without it;
+                     cold_ms: L2 flushed) and the bound; batched odd sizes
+                     (N=2) through every load width, misaligned bases, G =
+                     1, 8 and above 256 (launches over group slices),
+                     degenerate depths
   4. train_kernel -- K2 against autograd of the plain version at the
                      training shapes (B=4 at 512x640: the sweep and the two
                      refinement stages) with degenerate depths, plus
-                     batched odd sizes through the vector and scalar paths;
-                     times, bound, atomic counts
+                     batched odd sizes through the vector and scalar paths,
+                     C / K above 256 (launches over channel slices) and
+                     depths that jump by decades from plane to plane;
+                     times as in kernel, bound, global atomic counts
   5. small        -- the port on CUDA against the port on the CPU (the path
                      the CPU tests hold against JAX), same weights, 64x96
   6. main         -- CasDiffMVS export inference at DTU size (1152x1600, 5
@@ -71,8 +78,10 @@ from pathlib import Path
 
 import torch
 
-H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
+from diffmvs_tpu_torch.tools.kernel_times import (
+    bound, bwd_bound, cuda_ms, k2_global_atomics, make_depth, sample_counts,
+    timings, warp_bound)
+
 CORR_TOL = dict(rtol=1e-4, atol=1e-5)
 REPO = Path(__file__).resolve().parent
 
@@ -88,41 +97,6 @@ def log(phase, **kv):
           flush=True)
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median CUDA-event time of fn() in ms (warm L2)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound(nbytes, ops):
-    """Least time (ms) at the card's memory rate and f32 rate, and which
-    of the two bounds it."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
-def warp_bound(n, d, h, w, hs, ws, c, g, feat_bytes):
-    """K1: each input read once and the output written once, against the
-    operations it needs (coordinates ~20 per plane-pixel, 11 per channel
-    for the three lerps and the product-accumulate, 1 per group mean)."""
-    nbytes = (n * g * d * h * w * 4 + n * h * w * c * feat_bytes
-              + n * hs * ws * c * feat_bytes + n * d * h * w * 4 + n * 48)
-    return bound(nbytes, n * d * h * w * (20 + 11 * c + g))
-
-
 def pre_bound(n, d, h, w, hs, ws, c, g, feat_bytes):
     """K3: the output written once and src, ref and the five corner
     operands (int32 xi, yi, f32 fx, fy, a validity byte: 17 bytes per
@@ -132,32 +106,6 @@ def pre_bound(n, d, h, w, hs, ws, c, g, feat_bytes):
     nbytes = (n * g * d * h * w * 4 + n * h * w * c * feat_bytes
               + n * hs * ws * c * feat_bytes + n * d * h * w * 17)
     return bound(nbytes, n * d * h * w * (10 + 11 * c + g))
-
-
-def sample_counts(sp, rp, depth, hs, ws):
-    """(samples, samples with a corner in the image, in-image corners) of
-    one warp call: the work K2 does on these inputs."""
-    from diffmvs_tpu_torch.geometry.transforms import relative_projection
-    from diffmvs_tpu_torch.geometry.warp import plane_sweep_coords
-    rot, trans = relative_projection(sp.float(), rp.float())
-    x, y = plane_sweep_coords(rot, trans, depth)
-    x0, y0 = x.floor(), y.floor()
-    inside = (x0 >= -1) & (x0 <= ws - 1) & (y0 >= -1) & (y0 <= hs - 1)
-    vx = (x0 >= 0, x0 <= ws - 2)
-    vy = (y0 >= 0, y0 <= hs - 2)
-    corners = sum(int((inside & a & b).sum()) for a in vy for b in vx)
-    return x.numel(), int(inside.sum()), corners
-
-
-def bwd_bound(n, d, h, w, hs, ws, c, g, inside, corners):
-    """K2: g, src, ref, depth read once, d_src and d_ref written once,
-    against ~20 operations per sample for the coordinates, 9 per channel of
-    an in-image sample (re-sampling, the d_ref product-accumulate, the
-    scatter value) and 2 per channel of an in-image corner (its weight and
-    its atomic add)."""
-    nbytes = 4 * (n * g * d * h * w + 2 * n * hs * ws * c + 2 * n * h * w * c
-                  + n * d * h * w) + n * 48
-    return bound(nbytes, 20 * n * d * h * w + 9 * c * inside + 2 * c * corners)
 
 
 def flat_grads(model):
@@ -204,8 +152,8 @@ def phase_kernel(run):
                 err = (got - want).abs().max().item()
                 off = (want == 0).all(-1).float().mean().item()
                 rt = warp_corr.projection_scalars(sp, rp)
-                ms = cuda_ms(lambda: warp_corr.warp_corr_rt(
-                    src, ref, rt, depth, 4))
+                t = timings(lambda: warp_corr.warp_corr_rt(src, ref, rt,
+                                                           depth, 4))
                 plain_ms = cuda_ms(lambda: warp_and_correlate_plain(
                     src.float(), ref.float(), sp, rp, depth, 4))
                 bound_ms, bound_by = warp_bound(
@@ -213,45 +161,55 @@ def phase_kernel(run):
                 tag = "f32" if dt == torch.float32 else "bf16"
                 log("kernel", shape=name, dtype=tag, D=d, C=c,
                     hw=f"{h}x{w}", max_abs_err=f"{err:.3e}",
-                    off_image=f"{off:.3f}", ms=f"{ms:.4f}",
-                    plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-                    bound_by=bound_by)
-                row[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    off_image=f"{off:.3f}", ms=f"{t['ms']:.4f}",
+                    card_ms=f"{t['card_ms']:.4f}",
+                    cold_ms=f"{t['cold_ms']:.4f}", plain_ms=f"{plain_ms:.4f}",
+                    bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+                row[tag] = dict(max_abs_err=err, ms=t["ms"],
+                                card_ms=t["card_ms"], plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by)
         run["k1_rows"][(d, h, w, c)] = (name, row["f32"])
 
-    # batched samples with their own projections, odd sizes, and the
-    # scalar-load path (C/G = 3) next to the vector path (C/G = 4)
-    for c in (12, 16):
-        n, d, h, w = 2, 5, 37, 53
-        sp, rp = odd_pairs(projs, dev)
-        depth = 4.0 + 6.0 * torch.rand(n, d, h, w, device=dev, generator=gen)
-        for dt in (torch.float32, torch.bfloat16):
-            src = torch.randn(n, h + 3, w - 2, c, device=dev,
-                              generator=gen).to(dt)
-            ref = torch.randn(n, h, w, c, device=dev, generator=gen).to(dt)
+    # batched samples with their own projections, odd sizes (ragged
+    # tiles), degenerate depths in the first row, through every load
+    # width: f32 float4 (C/G = 4, 8, 12) and scalar (C/G = 3, 6, bases 4
+    # and 8 bytes off), bf16 uint4 (C/G = 8), uint2 (C/G = 4, 12 and an
+    # 8-byte base), pairs (C/G = 6, a 4-byte base) and scalar (C/G = 3, a
+    # 2-byte base); two groups per thread (C/G <= 4) and one; G = 1 (C/G =
+    # 48, a group wider than the registers hold), G = 8, and G = 520 and
+    # 257, more groups than a block has threads (two launches, two groups
+    # per thread and one)
+    n, d, h, w = 2, 5, 37, 53
+    sp, rp = odd_pairs(projs, dev)
+    depth = odd_depth(n, d, h, w, dev, gen)
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        for c, groups, shift in ((12, 4, 0), (16, 4, 0), (24, 4, 0),
+                                 (32, 4, 0), (48, 4, 0), (16, 4, 1),
+                                 (32, 4, 2), (32, 4, 4), (48, 1, 0),
+                                 (64, 8, 0), (1040, 520, 0), (514, 257, 0)):
+            src = shifted(torch.randn(n, h + 3, w - 2, c, device=dev,
+                                      generator=gen).to(dt), shift)
+            ref = shifted(torch.randn(n, h, w, c, device=dev,
+                                      generator=gen).to(dt), shift)
             with torch.inference_mode():
-                got = warp_corr.warp_corr(src, ref, sp, rp, depth, 4)
+                got = warp_corr.warp_corr(src, ref, sp, rp, depth, groups)
                 want = warp_and_correlate_plain(src.float(), ref.float(),
-                                                sp, rp, depth, 4)
+                                                sp, rp, depth, groups)
             torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, **CORR_TOL)
-    log("kernel", shape="batched_odd", N=2, C="12,16", hw="37x53",
-        src_hw="40x51", result="match")
+            tag = (f"{'f32' if dt == torch.float32 else 'bf16'}:"
+                   f"C{c}G{groups}+{shift}")
+            torch.testing.assert_close(got, want, **CORR_TOL, msg=lambda m: (
+                f"batched_odd {tag}: {m}"))
+            errs.append(f"{tag}={(got - want).abs().max().item():.1e}")
+    log("kernel", shape="batched_odd", N=n, D=d, hw=f"{h}x{w}",
+        src_hw=f"{h + 3}x{w - 2}", max_abs_err=",".join(errs))
 
 
-def make_depth(name, n, d, h, w, dev, gen):
-    """Sweep planes 4..10 m, or random refinement hypotheses; both with
-    degenerate depths (zero, behind the camera, tiny and huge) in the
-    first row."""
-    if name == "sweep":
-        inv = torch.arange(d, device=dev) / (d - 1.0)
-        depth = 1.0 / (0.1 + 0.15 * inv)
-        depth = depth.reshape(1, d, 1, 1).expand(n, d, h, w).contiguous()
-    else:
-        base = 4.0 + 6.0 * torch.rand(n, 1, h, w, device=dev, generator=gen)
-        offs = (torch.arange(d, device=dev) - d / 2) * 0.05
-        depth = (base + offs.reshape(1, d, 1, 1)).contiguous()
+def odd_depth(n, d, h, w, dev, gen):
+    """Refinement-like hypotheses 4..10 m with degenerate depths (zero,
+    behind the camera, tiny and huge) in the first row."""
+    depth = 4.0 + 6.0 * torch.rand(n, d, h, w, device=dev, generator=gen)
     depth[:, :, 0, :4] = torch.tensor([0.0, -5.0, 1e-30, 1e30], device=dev)
     return depth
 
@@ -312,8 +270,8 @@ def phase_train_kernel(run):
         err = max((k - wnt).abs().max().item() for k, wnt in zip(got, want))
 
         rt = warp_corr.projection_scalars(sp, rp)
-        ms = cuda_ms(lambda: warp_corr.warp_corr_backward(
-            src, ref, rt, depth, g, 4))
+        t = timings(lambda: warp_corr.warp_corr_backward(src, ref, rt, depth,
+                                                         g, 4))
         src_p = src.detach().requires_grad_()
         ref_p = ref.detach().requires_grad_()
         out_p = warp_and_correlate_plain(src_p, ref_p, sp, rp, depth, 4)
@@ -323,31 +281,62 @@ def phase_train_kernel(run):
         samples, inside, corners = sample_counts(sp, rp, depth, h, w)
         bound_ms, bound_by = bwd_bound(n, d, h, w, h, w, c, 4, inside,
                                        corners)
+        v4, scalar = k2_global_atomics(sp, rp, depth, h, w, c)
         log("train_kernel", shape=name, N=n, D=d, C=c, hw=f"{h}x{w}",
-            max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
+            max_abs_err=f"{err:.3e}", ms=f"{t['ms']:.4f}",
+            card_ms=f"{t['card_ms']:.4f}", cold_ms=f"{t['cold_ms']:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-            bound_by=bound_by, atomic_adds=corners * c,
+            bound_by=bound_by, global_atomics_v4=v4,
+            scalar_atomics_one_per_channel=scalar,
+            fewer_by=f"{scalar / max(1, v4):.2f}",
             in_image_samples=f"{inside / samples:.3f}")
         run["k2_rows"][(d, h, w, c)] = (name, dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by))
+            max_abs_err=err, ms=t["ms"], card_ms=t["card_ms"],
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
 
-    for c in (12, 16):
-        n, d, h, w = 2, 5, 37, 53
-        sp, rp = odd_pairs(projs, dev)
-        depth = 4.0 + 6.0 * torch.rand(n, d, h, w, device=dev, generator=gen)
-        src = torch.randn(n, h + 3, w - 2, c, device=dev, generator=gen)
-        ref = torch.randn(n, h, w, c, device=dev, generator=gen)
-        g_out = torch.randn(n, d, h, w, 4, device=dev, generator=gen)
+    # batched samples with odd sizes and degenerate depths in the first
+    # row through the float4 path (C/G = 4, 12) and the scalar one (C/G =
+    # 3, 6, a base 4 bytes off), G = 1; more channel lanes than a block has
+    # threads (C = 1040 float4, C = 264 and 1040 scalar: launches over
+    # channel slices); then depths from 1e-2 to 1e3 drawn per pixel and
+    # plane, whose corners move to other source pixels at every plane, so
+    # no sum is held across planes
+    n, d, h, w = 2, 5, 37, 53
+    sp, rp = odd_pairs(projs, dev)
+    wide = 10.0 ** (5.0 * torch.rand(n, d, h, w, device=dev,
+                                     generator=gen) - 2.0)
+    odd = []
+    for c, groups, shift, depth in (
+            (12, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+            (16, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+            (24, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+            (48, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+            (16, 4, 1, odd_depth(n, d, h, w, dev, gen)),
+            (48, 1, 0, odd_depth(n, d, h, w, dev, gen)),
+            (1040, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+            (264, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+            (1040, 520, 0, odd_depth(n, d, h, w, dev, gen)),
+            (16, 4, 0, wide), (12, 4, 0, wide)):
+        src = shifted(torch.randn(n, h + 3, w - 2, c, device=dev,
+                                  generator=gen), shift)
+        ref = shifted(torch.randn(n, h, w, c, device=dev, generator=gen),
+                      shift)
+        g_out = torch.randn(n, d, h, w, groups, device=dev, generator=gen)
         want = grads_of(lambda a, b: warp_and_correlate_plain(
-            a, b, sp, rp, depth, 4), src, ref, g_out)
+            a, b, sp, rp, depth, groups), src, ref, g_out)
         got = grads_of(lambda a, b: warp_corr.warp_corr(
-            a, b, sp, rp, depth, 4), src, ref, g_out)
+            a, b, sp, rp, depth, groups), src, ref, g_out)
         torch.cuda.synchronize()
-        for k, wnt in zip(got, want):
-            torch.testing.assert_close(k, wnt, **CORR_TOL)
-    log("train_kernel", shape="batched_odd", N=2, C="12,16", hw="37x53",
-        src_hw="40x51", result="match")
+        tag = f"C{c}G{groups}+{shift}{':wide' if depth is wide else ''}"
+        for k, wnt, what in zip(got, want, ("d_src", "d_ref")):
+            torch.testing.assert_close(k, wnt, **CORR_TOL, msg=lambda m: (
+                f"batched_odd {tag} {what}: {m}"))
+        err = max((k - wnt).abs().max().item() for k, wnt in zip(got, want))
+        odd.append(f"{tag}={err:.1e}")
+    v4, scalar = k2_global_atomics(sp, rp, wide, h + 3, w - 2, 16)
+    log("train_kernel", shape="batched_odd", N=n, D=d, hw=f"{h}x{w}",
+        src_hw=f"{h + 3}x{w - 2}", max_abs_err=",".join(odd),
+        wide_depths_v4_atomics=v4, wide_depths_scalar_atomics=scalar)
 
 
 def phase_small(run):
@@ -1015,7 +1004,8 @@ def main():
                 "source": f"diffmvs_tpu_torch/ops/csrc/{src}",
                 "replaces": f"diffmvs_tpu/ops/pallas/{replaces}",
                 "launches": counts[key], "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "ms": r["ms"], "card_ms": r["card_ms"],
+                "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None})
     for name, r in run["k3_rows"]:

@@ -24,27 +24,44 @@
 // caller; d_ref [N, H, W, C] f32, written whole here.
 //
 // The TPU kernel's band/window geometry and one-hot MXU scatter exist only
-// because Mosaic has no lane scatter; on Hopper d_src is a direct scatter.
+// because Mosaic has no lane scatter; on Hopper d_src is a scatter.
 //
-// What bounds it on an H100: the atomics. Per (plane, pixel) sample it
-// re-samples the 4 corners (C channels each) for d_ref and adds C values
-// into each in-image corner of d_src, against 4 bytes of g; the compulsory
-// traffic (each input read once, each output written once) is far below
-// what the corner reads and the atomic adds move through L2. Design,
-// simple and right first:
-//   * one thread per (n, ref pixel, 4 channels) -- or per channel when
-//     C/G % 4 != 0 or a base is not 16-byte aligned; it loops over the D
-//     planes. Neighbouring threads take neighbouring channels of one pixel,
-//     so ref, the corners and the d_src adds are contiguous across a warp;
-//   * coordinates, corners and validity from warp_geom.cuh, the same code
-//     as the forward, so both sample at the same coordinates bit for bit;
+// What bounds it on an H100: the scatter into d_src. Every in-image corner
+// of every sample adds C values (109.3 M at the training sweep, B = 4,
+// 64x80, D = 48, C = 48), against a compulsory traffic (each input read
+// once, each output written once) of ~35 MB. The kernel before this design
+// sent them as scalar f32 atomics, resolved one by one in L2. Design:
+//   * a block owns a 2-D tile of ref pixels and walks the D planes; C/K
+//     neighbouring threads share a pixel, K channels each (K = 4: float4
+//     loads; K = 1 where C/G % 4 != 0 or a base is not 16-byte aligned),
+//     so ref, the corners and the d_src adds are contiguous across a warp
+//     (a C / K above 256 is taken in launches of 256 lanes' channels);
+//   * the block computes each (plane, pixel) sample once, a batch of planes
+//     at a time, into shared memory (warp_geom's SampleRec); the C/K
+//     threads of a pixel read it back instead of each computing it;
+//   * d_src: each thread holds, per corner slot (00, 01, 10, 11), the sum
+//     of its weighted cotangents in registers while its pixel's sample
+//     stays on the same source pixel from plane to plane (the D = 4
+//     refinement hypotheses lie within a few percent of one depth; a sweep
+//     plane moves the sample ~0.3 px at the training shape), and sends it
+//     with one 128-bit global atomic (atomicAdd on float4, sm_90: RED.F32x4)
+//     when the slot moves on: 9.1 M vector atomics at the training sweep
+//     instead of 109.3 M scalar ones. (A shared-memory window of the tile's
+//     source box, flushed once with vector atomics, was slower: on sm_90 a
+//     shared-memory f32 atomicAdd compiles to a compare-and-swap loop,
+//     ATOMS.CAST.SPIN.) Corners in the padding get nothing;
 //   * d_ref: gathered in registers over the planes and written once, no
-//     atomics, deterministic;
-//   * d_src: f32 atomicAdd into each in-image corner (corners in the
-//     padding get nothing), so its sums run in an order that changes from
-//     run to run.
-// Later work: a deterministic d_src (a source-tile pass with shared-memory
-// accumulation) and red.global.add.v4.f32.
+//     atomics, deterministic; so the planes are not split over blocks:
+//     the channel lanes give the grid C/K threads per pixel (245 k at
+//     the training sweep) instead;
+//   * coordinates, corners and validity from warp_geom.cuh, the same code
+//     as the forward, so both sample at the same coordinates bit for bit.
+// What bounds it now: the vector atomics and the latency of each plane's
+// dependent loads (sample, cotangent, corners). d_src's sums still run in
+// an order that changes from run to run.
+// Later work: a deterministic d_src needs the samples binned by source
+// tile; the refinement stages' per-pixel depths have no inverse warp, so
+// that binning costs extra passes.
 
 #include "warp_geom.cuh"
 
@@ -54,7 +71,9 @@ using warp_geom::bilerp;
 using warp_geom::load1;
 using warp_geom::load4;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;          // threads per block at most
+constexpr int kMinBlocks = 4;          // resident blocks per SM (registers)
+constexpr size_t kRecBytes = 24 * 1024;  // the samples of a batch of planes
 
 template <int K>
 struct Vec {
@@ -86,105 +105,192 @@ __device__ __forceinline__ Vec<K> load_or_zero(bool valid, const float* p) {
   return z;
 }
 
-// K channels per thread: 4 (16-byte loads) or 1
+// K values into global memory: one 128-bit atomic (K = 4) or K scalar ones
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void global_add(float* p, const float* v) {
+  if constexpr (K == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) atomicAdd(p + k, v[k]);
+  }
+}
+
+// One block: a tile of P = 1 << p_log2 ref pixels, tw = 1 << tw_log2
+// wide, of sample blockIdx.y, all D planes, their samples computed db
+// planes at a time, channels [c_off, c_off + cs) of the C; thread = pixel *
+// (cs / K) + lane, lane owning channels [c_off + lane * K, + K).
+template <int K>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 warp_corr_bwd_kernel(const float* __restrict__ src,
                      const float* __restrict__ ref,
                      const float* __restrict__ depth,
                      const float* __restrict__ rt,
                      const float* __restrict__ g, float* __restrict__ d_src,
-                     float* __restrict__ d_ref, int N, int D, int H, int W,
-                     int Hs, int Ws, int C, int G) {
-  const int lanes = C / K;                          // threads per pixel
+                     float* __restrict__ d_ref, int D, int H, int W, int Hs,
+                     int Ws, int C, int G, int c_off, int cs, int p_log2,
+                     int tw_log2, int tiles_x, int db) {
+  extern __shared__ float4 smem[];        // the samples of db planes [db][P]
+  warp_geom::SampleRec* recs = reinterpret_cast<warp_geom::SampleRec*>(smem);
+  const int P = 1 << p_log2;
+  const int tw = 1 << tw_log2;
+  const int lanes = cs / K;
+  const int tid = threadIdx.x;
+  const int pl = tid / lanes;
+  const int lane = tid - pl * lanes;
+  const int x0 = (blockIdx.x % tiles_x) * tw;
+  const int y0 = (blockIdx.x / tiles_x) * (P >> tw_log2);
+  const int xi = x0 + (pl & (tw - 1));
+  const int yi = y0 + (pl >> tw_log2);
+  const int n = blockIdx.y;
+  const bool live = xi < W && yi < H;
   const int hw = H * W;
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (tid >= static_cast<long long>(N) * hw * lanes) return;
-  const int lane = static_cast<int>(tid % lanes);
-  const long long np = tid / lanes;                 // n * hw + pix
-  const int n = static_cast<int>(np / hw);
-  const int pix = static_cast<int>(np - static_cast<long long>(n) * hw);
-  const int yi = pix / W;
-  const int xi = pix - yi * W;
-  const float xg = static_cast<float>(xi);
-  const float yg = static_cast<float>(yi);
+  const int pix = live ? yi * W + xi : 0;
 
-  const int c0 = lane * K;
+  const int c0 = c_off + lane * K;
   const int cg = C / G;
   const int grp = c0 / cg;              // K divides cg: one group per thread
   const float inv_cg = 1.0f / static_cast<float>(cg);
 
   const float* m = rt + static_cast<size_t>(n) * 12;
-  const float* dep_p = depth + static_cast<size_t>(n) * D * hw + pix;
+  const float* dep_n = depth + static_cast<size_t>(n) * D * hw;
   const float* g_p =
       g + (static_cast<size_t>(n) * G + grp) * D * static_cast<size_t>(hw) +
       pix;
   const size_t img = static_cast<size_t>(n) * Hs * Ws * C + c0;
   const float* s_img = src + img;
   float* ds_img = d_src + img;
-  const size_t ref_off = static_cast<size_t>(np) * C + c0;
-  const Vec<K> r = load_k<K>(ref + ref_off);
-
+  const size_t ref_off = (static_cast<size_t>(n) * hw + pix) * C + c0;
+  Vec<K> r;
+  if (live) {
+    r = load_k<K>(ref + ref_off);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) r.v[k] = 0.0f;
+  }
   float acc[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+  // each corner slot's d_src sum is held in registers while the sample
+  // stays on the same source pixel from plane to plane (hk: that pixel,
+  // -1 for none), and added to d_src when it moves on
+  int hk[4] = {-1, -1, -1, -1};
+  float hv[4][K];
 
-  for (int d = 0; d < D; ++d) {
-    const warp_geom::Sample s =
-        warp_geom::locate(m, xg, yg, dep_p[static_cast<size_t>(d) * hw], Hs,
-                          Ws);
-    if (!s.inside) continue;
-    const float gd = g_p[static_cast<size_t>(d) * hw] * inv_cg;
-    const float* p00 = s_img + static_cast<size_t>(s.i00) * C;
-    const float* p01 = s_img + static_cast<size_t>(s.i01) * C;
-    const float* p10 = s_img + static_cast<size_t>(s.i10) * C;
-    const float* p11 = s_img + static_cast<size_t>(s.i11) * C;
-
-    // d_ref: the forward's sample, re-read
-    const Vec<K> a = load_or_zero<K>(s.v00, p00);
-    const Vec<K> b = load_or_zero<K>(s.v01, p01);
-    const Vec<K> e = load_or_zero<K>(s.v10, p10);
-    const Vec<K> f = load_or_zero<K>(s.v11, p11);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      acc[k] += gd * bilerp(a.v[k], b.v[k], e.v[k], f.v[k], s.wx, s.wy);
+  for (int d0 = 0; d0 < D; d0 += db) {
+    const int nb = min(db, D - d0);
+    if (d0 > 0) __syncthreads();          // the last batch's samples are read
+    for (int j = tid; j < nb * P; j += blockDim.x) {
+      const int p = j & (P - 1);
+      const int x = x0 + (p & (tw - 1));
+      const int y = y0 + (p >> tw_log2);
+      recs[j] = (x < W && y < H)
+                    ? warp_geom::pack(
+                          warp_geom::locate(
+                              m, static_cast<float>(x),
+                              static_cast<float>(y),
+                              dep_n[static_cast<size_t>(d0 + (j >> p_log2)) *
+                                        hw +
+                                    y * W + x],
+                              Hs, Ws),
+                          Ws)
+                    : warp_geom::SampleRec{0.0f, 0.0f, 0, 0u};
     }
+    __syncthreads();
+    if (!live) continue;
+    for (int k = 0; k < nb; ++k) {
+      const warp_geom::Sample s = warp_geom::unpack(recs[k * P + pl], Ws);
+      if (!s.inside) continue;
+      const float gd = g_p[static_cast<size_t>(d0 + k) * hw] * inv_cg;
 
-    // d_src: scatter into the in-image corners
-    const float ux = 1.0f - s.wx, uy = 1.0f - s.wy;
-    const float w00 = ux * uy, w01 = s.wx * uy;
-    const float w10 = ux * s.wy, w11 = s.wx * s.wy;
+      // d_ref: the forward's sample, re-read
+      const Vec<K> a = load_or_zero<K>(s.v00, s_img + size_t(s.i00) * C);
+      const Vec<K> b = load_or_zero<K>(s.v01, s_img + size_t(s.i01) * C);
+      const Vec<K> e = load_or_zero<K>(s.v10, s_img + size_t(s.i10) * C);
+      const Vec<K> f = load_or_zero<K>(s.v11, s_img + size_t(s.i11) * C);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float t = gd * r.v[k];
-      if (s.v00) atomicAdd(ds_img + static_cast<size_t>(s.i00) * C + k,
-                           w00 * t);
-      if (s.v01) atomicAdd(ds_img + static_cast<size_t>(s.i01) * C + k,
-                           w01 * t);
-      if (s.v10) atomicAdd(ds_img + static_cast<size_t>(s.i10) * C + k,
-                           w10 * t);
-      if (s.v11) atomicAdd(ds_img + static_cast<size_t>(s.i11) * C + k,
-                           w11 * t);
+      for (int q = 0; q < K; ++q) {
+        acc[q] += gd * bilerp(a.v[q], b.v[q], e.v[q], f.v[q], s.wx, s.wy);
+      }
+
+      // d_src: the weighted cotangent into the in-image corners
+      const float ux = 1.0f - s.wx, uy = 1.0f - s.wy;
+      const float wq[4] = {ux * uy, s.wx * uy, ux * s.wy, s.wx * s.wy};
+      const bool vq[4] = {s.v00, s.v01, s.v10, s.v11};
+      const int iq[4] = {s.i00, s.i01, s.i10, s.i11};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (!vq[q]) continue;
+        if (iq[q] != hk[q]) {
+          if (hk[q] >= 0) {
+            global_add<K>(ds_img + static_cast<size_t>(hk[q]) * C, hv[q]);
+          }
+          hk[q] = iq[q];
+#pragma unroll
+          for (int k2 = 0; k2 < K; ++k2) hv[q][k2] = 0.0f;
+        }
+#pragma unroll
+        for (int k2 = 0; k2 < K; ++k2) hv[q][k2] += wq[q] * (gd * r.v[k2]);
+      }
     }
   }
 
+  if (live) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) d_ref[ref_off + k] = acc[k];
+    for (int q = 0; q < 4; ++q) {
+      if (hk[q] >= 0) {
+        global_add<K>(ds_img + static_cast<size_t>(hk[q]) * C, hv[q]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) d_ref[ref_off + k] = acc[k];
+  }
 }
 
+// one launch for channels [c_off, c_off + cs) of the c, cs / K <= kThreads
+template <int K>
+int launch_k(const float* src, const float* ref, const float* depth,
+             const float* rt, const float* g, float* d_src, float* d_ref,
+             int n, int d, int h, int w, int hs, int ws, int c, int groups,
+             int c_off, int cs, cudaStream_t stream) {
+  const int lanes = cs / K;
+  if (n > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // P: the largest power of two with P * lanes <= kThreads; tile tw x th
+  int p_log2 = 0;
+  while ((2 << p_log2) * lanes <= kThreads) ++p_log2;
+  const int tw_log2 = (p_log2 + 1) / 2;
+  const int tw = 1 << tw_log2;
+  const int th = 1 << (p_log2 - tw_log2);
+  const int tiles_x = (w + tw - 1) / tw;
+  const long long tiles =
+      static_cast<long long>(tiles_x) * ((h + th - 1) / th);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // planes per batch: their samples take at most kRecBytes
+  const size_t rec = sizeof(warp_geom::SampleRec) << p_log2;
+  const int db = max(1, min(d, static_cast<int>(kRecBytes / rec)));
+  const dim3 grid(static_cast<unsigned>(tiles), n);
+  warp_corr_bwd_kernel<K><<<grid, (1 << p_log2) * lanes, rec * db,
+                            stream>>>(src, ref, depth, rt, g, d_src, d_ref,
+                                      d, h, w, hs, ws, c, groups, c_off, cs,
+                                      p_log2, tw_log2, tiles_x, db);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// every channel: launches of at most kThreads * K channels each (one
+// launch unless C / K > 256, fewer than one pixel per block)
 template <int K>
 int launch(const float* src, const float* ref, const float* depth,
            const float* rt, const float* g, float* d_src, float* d_ref,
            int n, int d, int h, int w, int hs, int ws, int c, int groups,
            cudaStream_t stream) {
-  const long long threads = static_cast<long long>(n) * h * w * (c / K);
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  warp_corr_bwd_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0,
-                            stream>>>(src, ref, depth, rt, g, d_src, d_ref,
-                                      n, d, h, w, hs, ws, c, groups);
-  return static_cast<int>(cudaGetLastError());
+  for (int c_off = 0; c_off < c; c_off += kThreads * K) {
+    const int err = launch_k<K>(src, ref, depth, rt, g, d_src, d_ref, n, d,
+                                h, w, hs, ws, c, groups, c_off,
+                                min(kThreads * K, c - c_off), stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 }  // namespace

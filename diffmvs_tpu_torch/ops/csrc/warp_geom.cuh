@@ -6,6 +6,10 @@
 // coordinates the forward sampled at (a 1-ulp change in a coordinate moves
 // a correlation by up to ~4e-5 at the model's feature scales).
 //
+// Both compute each (plane, pixel) sample once per block and keep it in
+// shared memory as a SampleRec (pack / unpack), which the threads that
+// share a pixel read back.
+//
 // Rounding: explicit round-to-nearest intrinsics in the plain path's
 // operation order (geometry/warp.py); the coordinates' last step is the one
 // fused multiply-add that plane_sweep_coords and the JAX reference take.
@@ -109,6 +113,66 @@ __device__ __forceinline__ Sample locate(const float* m, float xg, float yg,
   s.i01 = ya * Ws + xb;
   s.i10 = yb * Ws + xa;
   s.i11 = yb * Ws + xb;
+  return s;
+}
+
+// A Sample in 16 bytes, for a block that computes each (plane, pixel)
+// sample once into shared memory and reads it from several threads: the
+// fractions, the first corner (xa, ya) and, in yf's top 7 bits, inside,
+// the four validities and the steps to the second column and row (0 or 1).
+struct SampleRec {
+  float wx, wy;
+  int xa;
+  unsigned yf;                 // ya | flags << 25
+};
+
+constexpr unsigned kRecInside = 1u, kRecV00 = 2u, kRecV01 = 4u,
+                   kRecV10 = 8u, kRecV11 = 16u, kRecDx = 32u, kRecDy = 64u;
+
+__device__ __forceinline__ SampleRec pack(const Sample& s, int Ws) {
+  SampleRec r;
+  r.wx = s.wx;
+  r.wy = s.wy;
+  if (!s.inside) {
+    r.xa = 0;
+    r.yf = 0;
+    return r;
+  }
+  const int ya = s.i00 / Ws;
+  r.xa = s.i00 - ya * Ws;
+  const unsigned f = kRecInside | (s.v00 ? kRecV00 : 0u) |
+                     (s.v01 ? kRecV01 : 0u) | (s.v10 ? kRecV10 : 0u) |
+                     (s.v11 ? kRecV11 : 0u) |
+                     (s.i01 != s.i00 ? kRecDx : 0u) |
+                     (s.i10 != s.i00 ? kRecDy : 0u);
+  r.yf = static_cast<unsigned>(ya) | f << 25;
+  return r;
+}
+
+__device__ __forceinline__ unsigned rec_flags(const SampleRec& r) {
+  return r.yf >> 25;
+}
+
+__device__ __forceinline__ int rec_ya(const SampleRec& r) {
+  return static_cast<int>(r.yf & 0x1ffffffu);
+}
+
+// the Sample that pack() was given
+__device__ __forceinline__ Sample unpack(const SampleRec& r, int Ws) {
+  Sample s;
+  const unsigned f = rec_flags(r);
+  s.inside = f & kRecInside;
+  s.wx = r.wx;
+  s.wy = r.wy;
+  s.v00 = f & kRecV00;
+  s.v01 = f & kRecV01;
+  s.v10 = f & kRecV10;
+  s.v11 = f & kRecV11;
+  const int dx = (f & kRecDx) ? 1 : 0;
+  s.i00 = rec_ya(r) * Ws + r.xa;
+  s.i01 = s.i00 + dx;
+  s.i10 = s.i00 + ((f & kRecDy) ? Ws : 0);
+  s.i11 = s.i10 + dx;
   return s;
 }
 

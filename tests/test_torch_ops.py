@@ -12,6 +12,7 @@ the CPU (the port's plain paths). Tolerances:
     orders and sum orders differ only in rounding.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -34,6 +35,7 @@ from diffmvs_tpu.ops.pallas.warp_corr import (_corner_split,
 
 from diffmvs_tpu_torch.geometry import sampling, transforms, upsample, warp
 from diffmvs_tpu_torch.ops import correlation, softargmax, warp_corr
+from diffmvs_tpu_torch.tools import kernel_times
 
 from helpers import make_cams, stage_projs
 
@@ -209,6 +211,59 @@ def test_kernel_module_imports_without_nvcc():
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=os.path.dirname(os.path.dirname(__file__)))
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in warp_corr.CSRC.iterdir() if p.suffix in (".cu", ".cuh")))
+def test_build_key_covers_every_include(name):
+    """build() keys its cache on SOURCES and HEADERS: every file under
+    ops/csrc/ is one of them, and every local header a file includes is
+    in HEADERS, so an edit to it rebuilds the kernels."""
+    path = warp_corr.CSRC / name
+    keyed = {p.name for p in (*warp_corr.SOURCES.values(),
+                              *warp_corr.HEADERS)}
+    assert name in keyed
+    includes = [line.split('"')[1] for line in path.read_text().splitlines()
+                if line.strip().startswith("#include \"")]
+    headers = {p.name for p in warp_corr.HEADERS}
+    assert all(inc in headers for inc in includes), (name, includes)
+    if path.suffix == ".cu":
+        assert includes, f"{name} includes no shared header"
+
+
+@pytest.mark.parametrize("case", ["refine", "sweep"])
+def test_k2_atomic_count_replay(rng, case):
+    """kernel_times.k2_global_atomics, the count of K2's 128-bit d_src
+    atomics that PERF.md reports, against a pixel-by-pixel replay of the
+    kernel's hold: each corner slot's sum goes out when the slot's source
+    pixel changes, and once at the end."""
+    src, _, sp, rp, depths, _ = _corr_case(rng, case)
+    _, hs, ws, c = src.shape
+    depths = np.ascontiguousarray(depths[:, :, :6, :9])
+    v4, scalar = kernel_times.k2_global_atomics(T(sp), T(rp), T(depths), hs,
+                                                ws, c)
+    rot, trans = transforms.relative_projection(T(sp), T(rp))
+    x, y = warp.plane_sweep_coords(rot, trans, T(depths))
+    starts = corners = 0
+    _, d, h, w = depths.shape
+    for i in range(h):
+        for j in range(w):
+            held = [-1] * 4
+            for k in range(d):
+                x0 = math.floor(x[0, k, i, j].item())
+                y0 = math.floor(y[0, k, i, j].item())
+                if not (-1 <= x0 <= ws - 1 and -1 <= y0 <= hs - 1):
+                    continue
+                for q, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0),
+                                              (1, 1))):
+                    xq, yq = x0 + dx, y0 + dy
+                    if 0 <= xq < ws and 0 <= yq < hs:
+                        corners += 1
+                        if yq * ws + xq != held[q]:
+                            starts += 1
+                            held[q] = yq * ws + xq
+    assert corners > 0 and starts < corners
+    assert (v4, scalar) == (starts * (c // 4), corners * c)
 
 
 # ---------------------------------------------------------------------------

@@ -112,7 +112,8 @@ def test_import_loads_no_jax():
         "diffmvs_tpu_torch.train.checkpoint, diffmvs_tpu_torch.data.mvs, "
         "diffmvs_tpu_torch.data.pipeline, diffmvs_tpu_torch.fusion.fuse, "
         "diffmvs_tpu_torch.fusion.metrics, diffmvs_tpu_torch.cli.test, "
-        "diffmvs_tpu_torch.cli.eval_dtu\n"
+        "diffmvs_tpu_torch.cli.eval_dtu, "
+        "diffmvs_tpu_torch.tools.kernel_times\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'diffmvs_tpu')]\n"
         "assert not bad, bad\n")
