@@ -5,8 +5,9 @@
 Phases (one line each; any failure exits non-zero):
   1. device       -- needs CUDA; prints the card's name and power limit;
                      TF32 off
-  2. build        -- compiles the three kernels with nvcc, side by side: K1
-                     (ops/csrc/warp_corr.cu), K2 (warp_corr_bwd.cu) and K3
+  2. build        -- compiles the kernels' three sources with nvcc, side by
+                     side: K1 (ops/csrc/warp_corr.cu), K2 (warp_corr_bwd.cu),
+                     K3 with its operand and projection kernels
                      (warp_corr_pre.cu)
   3. kernel       -- K1 against its plain PyTorch version at the inference
                      path's shapes (and DiffMVS's refinement shape), f32
@@ -39,15 +40,21 @@ Phases (one line each; any failure exits non-zero):
                      K1 + 28 K2 launches and a finite loss and gradient
                      norm every step; one step's gradients against the
                      same step with the plain warp in place of the kernels
-  9. k3_kernel    -- K3, warp_corr(..., batch_rows=False), its only path:
+  9. k3_kernel    -- K3 and its operand and projection kernels, warp_corr(
+                     ..., batch_rows=False), their only path: the projection
+                     kernel bit for bit against projection_scalars; K3
                      against its plain version and against K1 on the same
                      inputs at the sweep / stage-2 / stage-3 DTU shapes, f32
-                     and bf16, degenerate depths in the first row; CUDA-event
-                     times and the bound; batched odd sizes (N=2) through
-                     its four instantiations (f32 float4 and scalar, bf16
-                     two pairs and one pair, aligned and misaligned bases);
-                     the gradients through K3 against those through K1
-                     (both K2) at the training stage-3 shape
+                     and bf16,
+                     degenerate depths in the first row; the operand kernel
+                     against corner_operands (the share of samples whose
+                     operands differ, validity flips only at the image's
+                     edges); times as in kernel for K3, the operands and
+                     the entry, and the bounds; batched odd sizes (N=2)
+                     through every instantiation (K1's odd cases: C/G = 3
+                     in f32 and bf16, G = 1, 8, 257 and 520, misaligned
+                     bases); the gradients through K3 against those through
+                     K1 (both K2) at the training stage-3 shape
  10. export       -- the scene export entry point as a user runs it:
                      cli.test.main on a synthetic DTU-layout scan of 7 views
                      at 1152x1600 (uint8 .npy serving caches), CasDiffMVS
@@ -60,8 +67,8 @@ Phases (one line each; any failure exits non-zero):
                      views/s and its split into load, inference, write and
                      fusion on the host's and the card's clock
 Then a JSON line of per-kernel numbers (K1's launches from main, K2's from
-train, K3's from the k3_kernel entry calls), the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+train, K3's, the operand and the projection kernel's from the k3_kernel
+entry calls), the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
 """
@@ -79,8 +86,8 @@ from pathlib import Path
 import torch
 
 from diffmvs_tpu_torch.tools.kernel_times import (
-    bound, bwd_bound, cuda_ms, k2_global_atomics, make_depth, sample_counts,
-    timings, warp_bound)
+    bound, bwd_bound, cuda_ms, k2_global_atomics, make_depth, operands_bound,
+    pre_bound, sample_counts, timings, warp_bound)
 
 CORR_TOL = dict(rtol=1e-4, atol=1e-5)
 REPO = Path(__file__).resolve().parent
@@ -97,15 +104,19 @@ def log(phase, **kv):
           flush=True)
 
 
-def pre_bound(n, d, h, w, hs, ws, c, g, feat_bytes):
-    """K3: the output written once and src, ref and the five corner
-    operands (int32 xi, yi, f32 fx, fy, a validity byte: 17 bytes per
-    plane-pixel) read once, against ~10 operations per plane-pixel, 11 per
-    channel (two y-lerps, the x-lerp, the product-accumulate) and 1 per
-    group mean."""
-    nbytes = (n * g * d * h * w * 4 + n * h * w * c * feat_bytes
-              + n * hs * ws * c * feat_bytes + n * d * h * w * 17)
-    return bound(nbytes, n * d * h * w * (10 + 11 * c + g))
+# (C, G, elements the bases lie off the allocator's alignment) of the
+# forward kernels' odd cases: every load width, f32 float4 (C/G = 4, 8,
+# 12) and scalar (C/G = 3, 6, bases 4 and 8 bytes off), bf16 uint4 (C/G =
+# 8), uint2 (C/G = 4, 12 and an 8-byte base), pairs (C/G = 6, a 4-byte
+# base) and scalar (C/G = 3, a 2-byte base); two or four adjacent groups
+# per thread in bf16 (C/G = 12 or 4), two groups per thread (C/G <= 4,
+# C/G = 4 at G = 6 in bf16 through uint2) and one; G = 1 (C/G = 48, a
+# group wider than the registers hold), G = 8, and G = 520 and 257, more
+# groups than a block has threads (two launches, two groups per thread and
+# one)
+ODD_CASES = ((12, 4, 0), (16, 4, 0), (24, 4, 0), (32, 4, 0), (48, 4, 0),
+             (16, 4, 1), (32, 4, 2), (32, 4, 4), (48, 1, 0), (64, 8, 0),
+             (24, 6, 0), (1040, 520, 0), (514, 257, 0))
 
 
 def flat_grads(model):
@@ -171,23 +182,14 @@ def phase_kernel(run):
         run["k1_rows"][(d, h, w, c)] = (name, row["f32"])
 
     # batched samples with their own projections, odd sizes (ragged
-    # tiles), degenerate depths in the first row, through every load
-    # width: f32 float4 (C/G = 4, 8, 12) and scalar (C/G = 3, 6, bases 4
-    # and 8 bytes off), bf16 uint4 (C/G = 8), uint2 (C/G = 4, 12 and an
-    # 8-byte base), pairs (C/G = 6, a 4-byte base) and scalar (C/G = 3, a
-    # 2-byte base); two groups per thread (C/G <= 4) and one; G = 1 (C/G =
-    # 48, a group wider than the registers hold), G = 8, and G = 520 and
-    # 257, more groups than a block has threads (two launches, two groups
-    # per thread and one)
+    # tiles), degenerate depths in the first row, through every load width
+    # (ODD_CASES)
     n, d, h, w = 2, 5, 37, 53
     sp, rp = odd_pairs(projs, dev)
     depth = odd_depth(n, d, h, w, dev, gen)
     errs = []
     for dt in (torch.float32, torch.bfloat16):
-        for c, groups, shift in ((12, 4, 0), (16, 4, 0), (24, 4, 0),
-                                 (32, 4, 0), (48, 4, 0), (16, 4, 1),
-                                 (32, 4, 2), (32, 4, 4), (48, 1, 0),
-                                 (64, 8, 0), (1040, 520, 0), (514, 257, 0)):
+        for c, groups, shift in ODD_CASES:
             src = shifted(torch.randn(n, h + 3, w - 2, c, device=dev,
                                       generator=gen).to(dt), shift)
             ref = shifted(torch.randn(n, h, w, c, device=dev,
@@ -386,7 +388,9 @@ def phase_main(run):
               f"{warp_corr.launches - before} launches in one request")
     launches = warp_corr.launches
     by_shape = dict(warp_corr.launches_by_shape)
-    check(warp_corr.bwd_launches == 0, "K2 launched during inference")
+    check(warp_corr.bwd_launches == warp_corr.pre_launches
+          == warp_corr.operand_launches == warp_corr.projection_launches
+          == 0, "only K1 during inference")
     peak = torch.cuda.max_memory_allocated()
 
     for depth, confs in results:
@@ -494,6 +498,9 @@ def phase_train(run):
     torch.cuda.synchronize()
     run["k2_launches"] = dict(warp_corr.bwd_launches_by_shape)
     k1_total, k2_total = warp_corr.launches, warp_corr.bwd_launches
+    check(warp_corr.pre_launches == warp_corr.operand_launches
+          == warp_corr.projection_launches == 0,
+          "no K3, operand or projection launches in training")
     peak = torch.cuda.max_memory_allocated()
 
     step_ms = []
@@ -558,8 +565,36 @@ def phase_train(run):
     check(cos > 0.9999, f"train gradients kernel vs plain cosine {cos}")
 
 
+def operand_check(kops, src, sp, rp, depth):
+    """The operand kernel's (xi, yi, fx, fy, valid) against corner_operands
+    on the same inputs: (samples, samples where any operand differs,
+    validity flips farther than 1e-5 relative from the validity's edges
+    x = -1, Ws and y = -1, Hs, max abs difference of the fractions)."""
+    from diffmvs_tpu_torch.geometry.warp import plane_sweep_coords
+    from diffmvs_tpu_torch.ops import warp_corr
+
+    hs, ws = src.shape[1], src.shape[2]
+    with torch.inference_mode():
+        want = warp_corr.corner_operands(src, sp, rp, depth)
+        rt = warp_corr.projection_scalars(sp, rp)
+        x, y = plane_sweep_coords(rt[:, :9].reshape(-1, 3, 3), rt[:, 9:],
+                                  depth)
+    differ = torch.zeros_like(want[4])
+    for a, b in zip(kops, want):
+        differ |= a != b
+    edge = torch.zeros_like(differ)
+    for v, edges in ((x, (-1.0, ws)), (y, (-1.0, hs))):
+        for e in edges:
+            edge |= (v - e).abs() <= 1e-5 * (abs(e) + 1.0)
+    far_flips = int(((kops[4] != want[4]) & ~edge).sum())
+    frac = max((a - b).abs().max().item() for a, b in zip(kops[2:4],
+                                                          want[2:4]))
+    return differ.numel(), int(differ.sum()), far_flips, frac
+
+
 def phase_k3_kernel(run):
-    """K3 (the batch_rows=False mode) against its plain version and K1."""
+    """K3 (the batch_rows=False mode) and its operand and projection
+    kernels against their plain versions, K3 against K1."""
     from diffmvs_tpu_torch.ops import warp_corr
     from diffmvs_tpu_torch.ops.correlation import corner_correlate_plain
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
@@ -587,22 +622,38 @@ def phase_k3_kernel(run):
     outs, counts = [], []
     with torch.inference_mode():
         for name, d, c, h, w, sp, rp, depth, src, ref in cases:
-            before = warp_corr.pre_launches
+            before = (warp_corr.pre_launches, warp_corr.operand_launches,
+                      warp_corr.projection_launches)
             outs.append(warp_corr.warp_corr(src, ref, sp, rp, depth, 4,
                                             batch_rows=False))
-            counts.append(warp_corr.pre_launches - before)
-            check(counts[-1] == 1, f"{counts[-1]} K3 launches in one call")
+            counts.append((warp_corr.pre_launches - before[0],
+                           warp_corr.operand_launches - before[1],
+                           warp_corr.projection_launches - before[2]))
+            check(counts[-1] == (1, 1, 1), f"{counts[-1]} K3 / operand / "
+                  f"projection launches in one call")
     torch.cuda.synchronize()
-    check(warp_corr.pre_launches == len(cases) and warp_corr.launches == 0,
-          f"{warp_corr.pre_launches} K3 / {warp_corr.launches} K1 launches")
-    launches = warp_corr.pre_launches
+    check(warp_corr.pre_launches == warp_corr.operand_launches
+          == warp_corr.projection_launches == len(cases)
+          and warp_corr.launches == 0,
+          f"{warp_corr.pre_launches} K3 / {warp_corr.operand_launches} "
+          f"operand / {warp_corr.projection_launches} projection / "
+          f"{warp_corr.launches} K1 launches")
+    projection_launches = warp_corr.projection_launches
+    operand_launches = {}
+    for (name, *_), (_, n_ops, _) in zip(cases, counts):
+        operand_launches[name] = operand_launches.get(name, 0) + n_ops
 
-    for (name, d, c, h, w, sp, rp, depth, src, ref), got, count in zip(
+    samples = mismatched = 0
+    for (name, d, c, h, w, sp, rp, depth, src, ref), got, (count, *_) in zip(
             cases, outs, counts):
         tag = "f32" if src.dtype == torch.float32 else "bf16"
+        rt = warp_corr.projection_scalars(sp, rp)
+        rt_kernel = warp_corr.launch_projection(sp, rp)
+        check(torch.equal(rt_kernel, rt),
+              f"projection kernel {name} differs from projection_scalars")
         with torch.inference_mode():
-            ops = warp_corr.corner_operands(src, sp, rp, depth)
-            want = corner_correlate_plain(src, ref, *ops, 4)
+            kops = warp_corr.launch_operands(rt, depth, h, w)
+            want = corner_correlate_plain(src, ref, *kops, 4)
             k1 = warp_corr.warp_corr(src, ref, sp, rp, depth, 4)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
@@ -610,59 +661,116 @@ def phase_k3_kernel(run):
         check(err <= 1e-5, f"K3 {name} {tag} vs plain {err}")
         check(err_k1 <= 1e-5, f"K3 {name} {tag} vs K1 {err_k1}")
         check(bool(torch.isfinite(got).all()), "K3 finite")
-        ms = cuda_ms(lambda: warp_corr.launch_pre(src, ref, *ops, 4))
-        entry_ms = cuda_ms(lambda: warp_corr.warp_corr(
+        t = timings(lambda: warp_corr.launch_pre(src, ref, *kops, 4))
+        entry = timings(lambda: warp_corr.warp_corr(
             src, ref, sp, rp, depth, 4, batch_rows=False))
-        rt = warp_corr.projection_scalars(sp, rp)
         k1_ms = cuda_ms(lambda: warp_corr.warp_corr_rt(src, ref, rt, depth,
-                                                       4))
-        plain_ms = cuda_ms(lambda: corner_correlate_plain(src, ref, *ops, 4))
+                                                       4), spin=True)
+        plain_ms = cuda_ms(lambda: corner_correlate_plain(src, ref, *kops,
+                                                          4))
         bound_ms, bound_by = pre_bound(1, d, h, w, h, w, c, 4,
                                        src.element_size())
+        if name == "sweep" and tag == "f32":
+            t_pr = timings(lambda: warp_corr.launch_projection(sp, rp))
+            plain_pr_ms = cuda_ms(lambda: warp_corr.projection_scalars(sp,
+                                                                        rp))
+            pr_bound, pr_by = bound(2 * 128 + 48, 300)
+            log("k3_kernel", projection="sweep", N=1, equal_bits=True,
+                ms=f"{t_pr['ms']:.4f}", card_ms=f"{t_pr['card_ms']:.4f}",
+                cold_ms=f"{t_pr['cold_ms']:.4f}",
+                plain_ms=f"{plain_pr_ms:.4f}", bound_ms=f"{pr_bound:.6f}",
+                bound_by=pr_by)
+            run["projection_row"] = dict(
+                max_abs_err=(rt_kernel - rt).abs().max().item(),
+                ms=t_pr["ms"], card_ms=t_pr["card_ms"],
+                cold_ms=t_pr["cold_ms"], plain_ms=plain_pr_ms,
+                bound_ms=pr_bound, bound_by=pr_by,
+                launches=projection_launches)
+        if tag == "f32":
+            # the operand kernel once per shape (it reads no features)
+            n_all, n_diff, far, frac = operand_check(kops, src, sp, rp,
+                                                     depth)
+            check(far == 0, f"operands {name}: {far} validity flips away "
+                  f"from the edges")
+            samples += n_all
+            mismatched += n_diff
+            t_ops = timings(lambda: warp_corr.launch_operands(rt, depth, h,
+                                                              w))
+            plain_ops_ms = cuda_ms(lambda: warp_corr.corner_operands(
+                src, sp, rp, depth))
+            ops_bound, ops_by = operands_bound(1, d, h, w)
+            log("k3_kernel", operands=name, D=d, hw=f"{h}x{w}",
+                mismatched=f"{n_diff}/{n_all}", far_flips=far,
+                frac_max_abs_err=f"{frac:.3e}", ms=f"{t_ops['ms']:.4f}",
+                card_ms=f"{t_ops['card_ms']:.4f}",
+                cold_ms=f"{t_ops['cold_ms']:.4f}",
+                plain_ms=f"{plain_ops_ms:.4f}", bound_ms=f"{ops_bound:.4f}",
+                bound_by=ops_by)
+            run["operand_rows"].append((name, dict(
+                max_abs_err=frac, ms=t_ops["ms"], card_ms=t_ops["card_ms"],
+                cold_ms=t_ops["cold_ms"], plain_ms=plain_ops_ms,
+                bound_ms=ops_bound, bound_by=ops_by,
+                launches=operand_launches[name], mismatched=n_diff)))
         log("k3_kernel", shape=name, dtype=tag, D=d, C=c, hw=f"{h}x{w}",
             max_abs_err=f"{err:.3e}", vs_k1_max_abs=f"{err_k1:.3e}",
-            ms=f"{ms:.4f}",
-            entry_ms=f"{entry_ms:.4f}", k1_ms=f"{k1_ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-            bound_by=bound_by)
+            ms=f"{t['ms']:.4f}", card_ms=f"{t['card_ms']:.4f}",
+            cold_ms=f"{t['cold_ms']:.4f}", entry_ms=f"{entry['ms']:.4f}",
+            entry_card_ms=f"{entry['card_ms']:.4f}",
+            k1_card_ms=f"{k1_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
         run["k3_rows"].append((f"{name}" if tag == "f32" else f"{name}:bf16",
-                               dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, launches=count)))
-    run["k3_launches"] = launches
+                               dict(max_abs_err=err, ms=t["ms"],
+                                    card_ms=t["card_ms"],
+                                    cold_ms=t["cold_ms"], plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    launches=count)))
 
-    # batched samples with their own projections and odd sizes through all
-    # four instantiations: f32 float4 (C/G = 4) and scalar (C/G = 3, and
-    # C/G = 4 at a base 4 bytes off 16-byte alignment), bf16 two pairs
-    # (C/G = 4) and one pair (C/G = 6, and C/G = 4 at a base 4 bytes off
-    # 8-byte alignment)
+    # batched samples with their own projections, odd sizes (ragged tiles)
+    # and degenerate depths in the first row, through every instantiation
+    # K1 has (ODD_CASES) and bf16 C/G = 4 at a base 4 bytes off: C/G = 3 in
+    # f32 and bf16, G = 1 (a group wider than 16 channels), G = 8, 257 and
+    # 520, misaligned bases
     n, d, h, w = 2, 5, 37, 53
     sp, rp = odd_pairs(projs, dev)
-    depth = 4.0 + 6.0 * torch.rand(n, d, h, w, device=dev, generator=gen)
-    depth[:, :, 0, :4] = torch.tensor([0.0, -5.0, 1e-30, 1e30], device=dev)
+    depth = odd_depth(n, d, h, w, dev, gen)
+    check(torch.equal(warp_corr.launch_projection(sp, rp),
+                      warp_corr.projection_scalars(sp, rp)),
+          "projection kernel batched_odd differs from projection_scalars")
+    with torch.inference_mode():
+        kops = warp_corr.launch_operands(warp_corr.projection_scalars(sp, rp),
+                                         depth, h + 3, w - 2)
     odd = []
-    for dt, c, shift in ((torch.float32, 16, 0), (torch.float32, 12, 0),
-                         (torch.float32, 16, 1), (torch.bfloat16, 16, 0),
-                         (torch.bfloat16, 24, 0), (torch.bfloat16, 16, 2)):
-        src = shifted(torch.randn(n, h + 3, w - 2, c, device=dev,
-                                  generator=gen).to(dt), shift)
-        ref = shifted(torch.randn(n, h, w, c, device=dev,
-                                  generator=gen).to(dt), shift)
-        with torch.inference_mode():
-            got = warp_corr.warp_corr(src, ref, sp, rp, depth, 4,
-                                      batch_rows=False)
-            want = corner_correlate_plain(
-                src, ref, *warp_corr.corner_operands(src, sp, rp, depth), 4)
-            k1 = warp_corr.warp_corr(src, ref, sp, rp, depth, 4)
-        torch.cuda.synchronize()
-        tag = f"{'f32' if dt == torch.float32 else 'bf16'}:C{c}+{shift}"
-        err = (got - want).abs().max().item()
-        err_k1 = (got - k1).abs().max().item()
-        check(err <= 1e-5, f"K3 batched_odd {tag} vs plain {err}")
-        check(err_k1 <= 1e-5, f"K3 batched_odd {tag} vs K1 {err_k1}")
-        odd.append(f"{tag}={max(err, err_k1):.1e}")
+    for dt in (torch.float32, torch.bfloat16):
+        for c, groups, shift in ODD_CASES + ((16, 4, 2),):
+            src = shifted(torch.randn(n, h + 3, w - 2, c, device=dev,
+                                      generator=gen).to(dt), shift)
+            ref = shifted(torch.randn(n, h, w, c, device=dev,
+                                      generator=gen).to(dt), shift)
+            with torch.inference_mode():
+                got = warp_corr.warp_corr(src, ref, sp, rp, depth, groups,
+                                          batch_rows=False)
+                want = corner_correlate_plain(src, ref, *kops, groups)
+                k1 = warp_corr.warp_corr(src, ref, sp, rp, depth, groups)
+            torch.cuda.synchronize()
+            tag = (f"{'f32' if dt == torch.float32 else 'bf16'}:"
+                   f"C{c}G{groups}+{shift}")
+            err = (got - want).abs().max().item()
+            err_k1 = (got - k1).abs().max().item()
+            check(err <= 1e-5, f"K3 batched_odd {tag} vs plain {err}")
+            check(err_k1 <= 1e-5, f"K3 batched_odd {tag} vs K1 {err_k1}")
+            odd.append(f"{tag}={max(err, err_k1):.1e}")
+    n_all, n_diff, far, frac = operand_check(kops, src, sp, rp, depth)
+    check(far == 0, f"operands batched_odd: {far} validity flips away "
+          f"from the edges")
+    samples += n_all
+    mismatched += n_diff
     log("k3_kernel", shape="batched_odd", N=n, D=d, hw=f"{h}x{w}",
-        src_hw=f"{h + 3}x{w - 2}", max_abs_err_vs_plain_and_k1=",".join(odd))
+        src_hw=f"{h + 3}x{w - 2}", max_abs_err_vs_plain_and_k1=",".join(odd),
+        operands_mismatched=f"{n_diff}/{n_all}")
+    share = mismatched / samples
+    log("k3_kernel", operand_samples=samples, operands_mismatched=mismatched,
+        mismatch_share=f"{share:.3e}")
+    check(share <= 1e-6, f"operand mismatch share {share}")
 
     # gradients through K3 against those through K1 (both K2), at the
     # training stage-3 shape
@@ -674,12 +782,18 @@ def phase_k3_kernel(run):
     src = torch.randn(n, h, w, c, device=dev, generator=gen)
     ref = torch.randn(n, h, w, c, device=dev, generator=gen)
     g_out = torch.randn(n, d, h, w, 4, device=dev, generator=gen)
-    before = (warp_corr.pre_launches, warp_corr.bwd_launches)
+    check(torch.equal(warp_corr.launch_projection(sp, rp),
+                      warp_corr.projection_scalars(sp, rp)),
+          "projection kernel (N = 4) differs from projection_scalars")
+    before = (warp_corr.pre_launches, warp_corr.bwd_launches,
+              warp_corr.operand_launches, warp_corr.projection_launches)
     k3 = grads_of(lambda a, b: warp_corr.warp_corr(
         a, b, sp, rp, depth, 4, batch_rows=False), src, ref, g_out)
     check((warp_corr.pre_launches - before[0],
-           warp_corr.bwd_launches - before[1]) == (1, 1),
-          "K3 forward + K2 backward")
+           warp_corr.bwd_launches - before[1],
+           warp_corr.operand_launches - before[2],
+           warp_corr.projection_launches - before[3]) == (1, 1, 1, 1),
+          "projection + operands + K3 forward + K2 backward")
     k1 = grads_of(lambda a, b: warp_corr.warp_corr(
         a, b, sp, rp, depth, 4), src, ref, g_out)
     torch.cuda.synchronize()
@@ -825,8 +939,9 @@ def phase_export(run):
     check(k1 == 28 * views, f"{k1} K1 launches for {views} views")
     check(sorted(by_shape.values()) == [views * 4, views * 12, views * 12],
           f"K1 by shape {by_shape}")
-    check(warp_corr.bwd_launches == 0 and warp_corr.pre_launches == 0,
-          "only K1 on the export path")
+    check(warp_corr.bwd_launches == warp_corr.pre_launches
+          == warp_corr.operand_launches == warp_corr.projection_launches
+          == 0, "only K1 on the export path")
     exp = res["export"]
     check(exp["views"] == views and len(infer_card) == views,
           f"{exp['views']} views exported")
@@ -983,8 +1098,8 @@ def main():
 
     dev = torch.device("cuda")
     run = {"dev": dev, "gen": torch.Generator(device=dev).manual_seed(0),
-           "k1_rows": {}, "k2_rows": {}, "k3_rows": [], "k1_launches": {},
-           "k2_launches": {}}
+           "k1_rows": {}, "k2_rows": {}, "k3_rows": [], "operand_rows": [],
+           "k1_launches": {}, "k2_launches": {}}
     for phase in (phase_kernel, phase_train_kernel, phase_small, phase_main,
                   phase_train_small, phase_train, phase_k3_kernel,
                   phase_export):
@@ -1014,10 +1129,38 @@ def main():
             "source": "diffmvs_tpu_torch/ops/csrc/warp_corr_pre.cu",
             "replaces": "diffmvs_tpu/ops/pallas/warp_corr.py:55",
             "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "card_ms": r["card_ms"], "cold_ms": r["cold_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
-    check(len(kernels) == 12, f"{len(kernels)} kernel rows")
+    # K3's operand kernel is the port's own: the JAX package computes the
+    # operands in XLA (plane_sweep_coords + _corner_split), not in a kernel
+    for name, r in run["operand_rows"]:
+        kernels.append({
+            "name": f"warp_corr_operands:{name}", "route": "cuda",
+            "source": "diffmvs_tpu_torch/ops/csrc/warp_corr_pre.cu",
+            "replaces": "diffmvs_tpu/ops/pallas/warp_corr.py:842",
+            "note": "the port's own kernel, not a TPU kernel: the XLA glue "
+                    "of warp_corr_pallas(batch_rows=False)",
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "mismatched_samples": r["mismatched"],
+            "ms": r["ms"], "card_ms": r["card_ms"], "cold_ms": r["cold_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    r = run["projection_row"]
+    kernels.append({
+        "name": "warp_corr_projection", "route": "cuda",
+        "source": "diffmvs_tpu_torch/ops/csrc/warp_corr_pre.cu",
+        "replaces": "diffmvs_tpu/ops/pallas/warp_corr.py:834",
+        "note": "the port's own kernel, not a TPU kernel: "
+                "relative_projection, which the JAX package runs in XLA",
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "card_ms": r["card_ms"], "cold_ms": r["cold_ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None})
+    check(len(kernels) == 16, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

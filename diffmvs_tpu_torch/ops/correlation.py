@@ -61,9 +61,9 @@ def corner_correlate_plain(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
     ops/warp_corr.corner_split gives them. Interpolates in the TPU
     kernel's order (the two y-lerps (1 - fy) * top + fy * bottom, then
     left + (right - left) * fx); each corner outside the image reads zero.
-    For bfloat16 features each group's sum is the sum over its even
-    channels plus the sum over its odd ones, as the packed kernel pairs
-    them. Returns [B, D, H, W, G] float32.
+    Each group sums its channels in order, for bfloat16 features as for
+    float32 ones, at any C/G (the TPU kernel's default, unpacked mode).
+    Returns [B, D, H, W, G] float32.
     """
     b, hs, ws, c = src_fea.shape
     _, d, h, w = xi.shape
@@ -85,9 +85,6 @@ def corner_correlate_plain(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
     warped = torch.where(valid[..., None], warped, torch.zeros_like(warped))
     prod = warped * ref_fea.float()[:, None]
     cg = c // groups
-    if src_fea.dtype == torch.bfloat16:
-        pairs = prod.reshape(b, d, h, w, groups, cg // 2, 2).sum(-2)
-        return (pairs[..., 0] + pairs[..., 1]) / cg
     return prod.reshape(b, d, h, w, groups, cg).sum(-1) / cg
 
 

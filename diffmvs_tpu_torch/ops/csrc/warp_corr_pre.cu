@@ -1,8 +1,8 @@
 // Warp + group correlation from precomputed corner operands (K3), forward,
-// for Hopper (sm_90a).
+// and the kernel that computes those operands, for Hopper (sm_90a).
 //
-// Replaces diffmvs_tpu/ops/pallas/warp_corr.py:55 `_corr_kernel` (the TPU
-// kernel reached through warp_corr_pallas(..., batch_rows=False)). It
+// K3 replaces diffmvs_tpu/ops/pallas/warp_corr.py:55 `_corr_kernel` (the
+// TPU kernel reached through warp_corr_pallas(..., batch_rows=False)). It
 // computes the same function as the plain PyTorch path in
 // ops/correlation.py (corner_correlate_plain):
 //
@@ -14,33 +14,39 @@
 //                    (left = (1 - fy) * s[y0, x0] + fy * s[y1, x0]; right the
 //                     same at x1; w = left + (right - left) * fx) : 0,
 //            each corner outside [0, Ws) x [0, Hs) reading zero
-//     out[n, g, d, p] = sum over the C/G channels c of group g of
-//                       w[c] * ref[n, p, c], divided by C/G
+//     out[n, g, d, p] = sum over the C/G channels c of group g, in channel
+//                       order, of w[c] * ref[n, p, c], times 1 / (C/G)
 //
 // The TPU kernel interpolates in that order (y first, then x: its band rows
 // are summed with the weights (1 - fy, fy) before the x-lerp), and so does
 // this kernel, with explicit round-to-nearest intrinsics; K1 (warp_corr.cu)
-// interpolates x first. bf16 features take the TPU kernel's packed path:
-// channel pairs are read as one 32-bit word, unpacked to f32, and each
-// group's sum is (sum over its even channels) + (sum over its odd ones).
+// interpolates x first. bf16 features are upcast on load and summed like
+// f32 ones, at every C/G, as the TPU kernel's default (unpacked) mode does.
 //
-// Layouts: src [N, Hs, Ws, C], ref [N, H, W, C] channels-last (f32, or
-// bf16 upcast on load), xi/yi int32, fx/fy f32 and valid uint8 (0/1), each
-// [N, D, H, W]; out [N, G, D, H, W] f32, returned by the wrapper as a
-// [N, D, H, W, G] view (K1's layout).
+// Layouts: src [N, Hs, Ws, C], ref [N, H, W, C] channels-last (f32 or
+// bf16), xi/yi int32, fx/fy f32 and valid uint8 (0/1), each [N, D, H, W];
+// out [N, G, D, H, W] f32, returned by the wrapper as a [N, D, H, W, G]
+// view (K1's layout).
 //
-// What bounds it on an H100: bytes. Per (plane, pixel) it reads 17 bytes of
-// operands (K1 reads 4 bytes of depth instead and computes the rest) and
-// writes 4 G bytes, with ~11 operations per channel against 4 corner reads
-// of C channels that hit L1/L2. Design, simple first: one thread per
-// (n, d, pixel), neighbouring threads on neighbouring pixels of one plane,
-// so the five operand loads and the output stores are coalesced; corners
-// are read as C contiguous channels, 16-byte vector loads for f32 (8-byte,
-// two bf16 pairs, for bf16) when C/G allows and the bases are aligned; f32
-// group sums. The source's zero padding is virtual (each corner is checked
-// against the image), so no padded copy of the source is made.
-// The TPU kernel zeroes samples outside its DMA windows and row bands; this
-// kernel reads the whole source image and needs no window, band or guard.
+// What bounds it on an H100: as K1, the ~1 GB of corner requests through
+// L1/L2 at the sweep, not its compulsory bytes (the output once, src, ref
+// and 17 bytes of operands per (plane, pixel) once). Design: the block-tiled
+// forward of warp_geom.cuh (corr_kernel), which K1 instantiates too: the
+// threads of a pixel read each corner's channel row together, ref stays in
+// registers across the block's planes, outputs are staged and written as
+// tile rows. Each (plane, pixel) operand set is loaded once per block,
+// coalesced, into a 16-byte SampleRec in shared memory (CornerSamples
+// below). The source's zero padding is virtual (each corner is checked
+// against the image), so no padded copy is made, and the whole source is
+// read in place: no window, band or guard.
+//
+// The operand kernel (warp_corr_operands) writes (xi, yi, fx, fy, valid)
+// from the depths and the 12 projection scalars of each sample, with
+// warp_geom's sweep_xy (the coordinates K1 and K2 sample at) and the
+// semantics of ops/warp_corr.corner_split: validity decided in float
+// before any integer cast, invalid samples carrying zeros. Bytes bound it:
+// 4 read and 17 written per (plane, pixel), one thread each, every load
+// and store coalesced.
 //
 // Do not build with --use_fast_math (approximate division).
 
@@ -48,189 +54,205 @@
 
 namespace {
 
-using warp_geom::load1;
-using warp_geom::load4;
+// K3's samples: read from the operands [N, D, H, W]; interpolated y first
+struct CornerSamples {
+  const int* xi;
+  const int* yi;
+  const float* fx;
+  const float* fy;
+  const uint8_t* valid;
 
-constexpr int kThreads = 128;
+  struct Block {         // the operands of one sample from plane d0 on
+    const int* xi;
+    const int* yi;
+    const float* fx;
+    const float* fy;
+    const uint8_t* valid;
+    int hw;
 
-// (1 - fy) * top + fy * bot, with gy = 1 - fy
-__device__ __forceinline__ float lerp_y(float top, float bot, float fy,
-                                        float gy) {
-  return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
-}
+    __device__ __forceinline__ warp_geom::SampleRec rec(int dd, int x, int y,
+                                                        int W, int Hs,
+                                                        int Ws) const {
+      using namespace warp_geom;
+      const size_t o = static_cast<size_t>(dd) * hw + y * W + x;
+      if (!__ldg(valid + o)) return SampleRec{0.0f, 0.0f, 0, 0u};
+      // padded corner index xi is the original x1; x0 = xi - 1. Each
+      // corner is checked against the image, so any operands read safely.
+      const int x1 = __ldg(xi + o), y1 = __ldg(yi + o);
+      const int x0 = x1 - 1, y0 = y1 - 1;
+      const bool vx0 = x0 >= 0 && x0 <= Ws - 1;
+      const bool vx1 = x1 >= 0 && x1 <= Ws - 1;
+      const bool vy0 = y0 >= 0 && y0 <= Hs - 1;
+      const bool vy1 = y1 >= 0 && y1 <= Hs - 1;
+      const int xa = min(max(x0, 0), Ws - 1), xb = min(max(x1, 0), Ws - 1);
+      const int ya = min(max(y0, 0), Hs - 1), yb = min(max(y1, 0), Hs - 1);
+      const unsigned f = kRecInside | (vy0 && vx0 ? kRecV00 : 0u) |
+                         (vy0 && vx1 ? kRecV01 : 0u) |
+                         (vy1 && vx0 ? kRecV10 : 0u) |
+                         (vy1 && vx1 ? kRecV11 : 0u) |
+                         (xb != xa ? kRecDx : 0u) | (yb != ya ? kRecDy : 0u);
+      return SampleRec{__ldg(fx + o), __ldg(fy + o), xa,
+                       static_cast<unsigned>(ya) | f << 25};
+    }
+  };
 
-// the TPU kernel's order: the two y-lerps, then left + (right - left) * fx
-__device__ __forceinline__ float interp(float v00, float v01, float v10,
-                                        float v11, float fx, float fy,
-                                        float gy) {
-  const float left = lerp_y(v00, v10, fy, gy);
-  const float right = lerp_y(v01, v11, fy, gy);
-  return __fadd_rn(left, __fmul_rn(__fsub_rn(right, left), fx));
-}
+  __device__ __forceinline__ Block block(int n, int d0, int D,
+                                         int hw) const {
+    const size_t o = (static_cast<size_t>(n) * D + d0) * hw;
+    return Block{xi + o, yi + o, fx + o, fy + o, valid + o, hw};
+  }
 
-// one bf16 channel pair from a 32-bit word: (even, odd) channel as f32
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
-}
+  // bf16 at C/G = 4: four adjacent groups a thread, two 16-byte loads a
+  // corner (timed faster than two at stage 3 with smooth depths)
+  static constexpr int kBf16Groups4 = 4;
 
-// The corners of one sample: source pointers and their validity.
-template <typename T>
-struct Corners {
-  const T *p00, *p01, *p10, *p11;
-  bool v00, v01, v10, v11;
+  // the TPU kernel's order: the two y-lerps (1 - fy) * top + fy * bottom,
+  // then left + (right - left) * fx
+  static __device__ __forceinline__ float lerp(float v00, float v01,
+                                               float v10, float v11,
+                                               float fx, float fy) {
+    const float gy = __fsub_rn(1.0f, fy);
+    const float left = __fadd_rn(__fmul_rn(v00, gy), __fmul_rn(v10, fy));
+    const float right = __fadd_rn(__fmul_rn(v01, gy), __fmul_rn(v11, fy));
+    return __fadd_rn(left, __fmul_rn(__fsub_rn(right, left), fx));
+  }
 };
 
-template <typename T>
-__device__ __forceinline__ Corners<T> corners(const T* s_img, int xi, int yi,
-                                              int Hs, int Ws, int C) {
-  // padded corner index xi is the original x1; x0 = xi - 1
-  const int x0 = xi - 1, x1 = xi, y0 = yi - 1, y1 = yi;
-  const bool vx0 = x0 >= 0 && x0 <= Ws - 1, vx1 = x1 >= 0 && x1 <= Ws - 1;
-  const bool vy0 = y0 >= 0 && y0 <= Hs - 1, vy1 = y1 >= 0 && y1 <= Hs - 1;
-  const int xa = min(max(x0, 0), Ws - 1), xb = min(max(x1, 0), Ws - 1);
-  const int ya = min(max(y0, 0), Hs - 1), yb = min(max(y1, 0), Hs - 1);
-  Corners<T> k;
-  k.p00 = s_img + (static_cast<size_t>(ya) * Ws + xa) * C;
-  k.p01 = s_img + (static_cast<size_t>(ya) * Ws + xb) * C;
-  k.p10 = s_img + (static_cast<size_t>(yb) * Ws + xa) * C;
-  k.p11 = s_img + (static_cast<size_t>(yb) * Ws + xb) * C;
-  k.v00 = vy0 && vx0;
-  k.v01 = vy0 && vx1;
-  k.v10 = vy1 && vx0;
-  k.v11 = vy1 && vx1;
-  return k;
+// ---- the projection src <- ref of each sample: rt [N, 12] (rot row-major,
+// then trans) as geometry/transforms.relative_projection computes it, op
+// by op, on the card. Its matrix products are _mm's chain: the first
+// product rounded to f32, then each step f32(f64(a b) + f64(acc)), the
+// product exact in f64 (the float64 emulation of a fused multiply-add
+// that the plain code runs, with the same double rounding).
+
+__device__ __forceinline__ float mm_step(float acc, float a, float b) {
+  return __double2float_rn(
+      __dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
+                static_cast<double>(acc)));
 }
 
-// VEC = 4: float4 loads (C/G % 4 == 0, 16-byte aligned); VEC = 1: scalar
-template <int VEC>
-__global__ void __launch_bounds__(kThreads)
-k3_f32(const float* __restrict__ src, const float* __restrict__ ref,
-       const int* __restrict__ xi, const int* __restrict__ yi,
-       const float* __restrict__ fx, const float* __restrict__ fy,
-       const uint8_t* __restrict__ valid, float* __restrict__ out, int D,
-       int H, int W, int Hs, int Ws, int C, int G) {
-  const int hw = H * W;
-  const int pix = blockIdx.x * kThreads + threadIdx.x;
-  if (pix >= hw) return;
-  const int d = blockIdx.y;
-  const int n = blockIdx.z;
-  const size_t op = (static_cast<size_t>(n) * D + d) * hw + pix;
-  float* out_p = out + (static_cast<size_t>(n) * G * D + d) *
-                           static_cast<size_t>(hw) + pix;
-  const size_t g_stride = static_cast<size_t>(D) * hw;
-  if (!valid[op]) {
-    for (int g = 0; g < G; ++g) out_p[g * g_stride] = 0.0f;
-    return;
-  }
-  const float wx = fx[op], wy = fy[op];
-  const float gy = __fsub_rn(1.0f, wy);
-  const Corners<float> k = corners(
-      src + static_cast<size_t>(n) * Hs * Ws * C, xi[op], yi[op], Hs, Ws, C);
-  const float* r_p = ref + (static_cast<size_t>(n) * hw + pix) * C;
-  const int cg = C / G;
-  const float fcg = static_cast<float>(cg);
-
-  for (int g = 0; g < G; ++g) {
-    float acc = 0.0f;
-    const int c_end = (g + 1) * cg;
-    if constexpr (VEC == 4) {
-      const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int c = g * cg; c < c_end; c += 4) {
-        const float4 a = k.v00 ? load4(k.p00 + c) : z4;
-        const float4 b = k.v01 ? load4(k.p01 + c) : z4;
-        const float4 e = k.v10 ? load4(k.p10 + c) : z4;
-        const float4 f = k.v11 ? load4(k.p11 + c) : z4;
-        const float4 r = load4(r_p + c);
-        acc += interp(a.x, b.x, e.x, f.x, wx, wy, gy) * r.x;
-        acc += interp(a.y, b.y, e.y, f.y, wx, wy, gy) * r.y;
-        acc += interp(a.z, b.z, e.z, f.z, wx, wy, gy) * r.z;
-        acc += interp(a.w, b.w, e.w, f.w, wx, wy, gy) * r.w;
-      }
-    } else {
-      for (int c = g * cg; c < c_end; ++c) {
-        const float a = k.v00 ? load1(k.p00 + c) : 0.0f;
-        const float b = k.v01 ? load1(k.p01 + c) : 0.0f;
-        const float e = k.v10 ? load1(k.p10 + c) : 0.0f;
-        const float f = k.v11 ? load1(k.p11 + c) : 0.0f;
-        acc += interp(a, b, e, f, wx, wy, gy) * load1(r_p + c);
-      }
+// out = a @ b by _mm's chain over the inner index in ascending order
+template <int I, int K, int J>
+__device__ __forceinline__ void mm(const float (&a)[I][K],
+                                   const float (&b)[K][J],
+                                   float (&out)[I][J]) {
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      float acc = __double2float_rn(__dmul_rn(static_cast<double>(a[i][0]),
+                                              static_cast<double>(b[0][j])));
+#pragma unroll
+      for (int k = 1; k < K; ++k) acc = mm_step(acc, a[i][k], b[k][j]);
+      out[i][j] = acc;
     }
-    out_p[g * g_stride] = __fdiv_rn(acc, fcg);
   }
 }
 
-// bf16 channel pairs: VEC = 4 reads two pairs (8 bytes) per corner and
-// step (C/G % 4 == 0, 8-byte aligned), VEC = 2 one pair (4 bytes)
-template <int VEC>
-__global__ void __launch_bounds__(kThreads)
-k3_bf16(const __nv_bfloat16* __restrict__ src,
-        const __nv_bfloat16* __restrict__ ref, const int* __restrict__ xi,
-        const int* __restrict__ yi, const float* __restrict__ fx,
-        const float* __restrict__ fy, const uint8_t* __restrict__ valid,
-        float* __restrict__ out, int D, int H, int W, int Hs, int Ws, int C,
-        int G) {
-  const int hw = H * W;
-  const int pix = blockIdx.x * kThreads + threadIdx.x;
-  if (pix >= hw) return;
-  const int d = blockIdx.y;
-  const int n = blockIdx.z;
-  const size_t op = (static_cast<size_t>(n) * D + d) * hw + pix;
-  float* out_p = out + (static_cast<size_t>(n) * G * D + d) *
-                           static_cast<size_t>(hw) + pix;
-  const size_t g_stride = static_cast<size_t>(D) * hw;
-  if (!valid[op]) {
-    for (int g = 0; g < G; ++g) out_p[g * g_stride] = 0.0f;
-    return;
+// one thread per sample; pairs [N, 2, 4, 4] f32 (extrinsic, intrinsic)
+__global__ void projection_kernel(const float* __restrict__ src_pair,
+                                  const float* __restrict__ ref_pair,
+                                  float* __restrict__ rt, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* sp = src_pair + static_cast<size_t>(i) * 32;
+  const float* rp = ref_pair + static_cast<size_t>(i) * 32;
+  float e_src[4][4], k_src[3][3], r_t[3][3], t_ref[3][1];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) e_src[r][c] = sp[r * 4 + c];
   }
-  const float wx = fx[op], wy = fy[op];
-  const float gy = __fsub_rn(1.0f, wy);
-  const Corners<__nv_bfloat16> k =
-      corners(src + static_cast<size_t>(n) * Hs * Ws * C, xi[op], yi[op], Hs,
-              Ws, C);
-  const __nv_bfloat16* r_p = ref + (static_cast<size_t>(n) * hw + pix) * C;
-  const int cg = C / G;
-  const float fcg = static_cast<float>(cg);
-
-  for (int g = 0; g < G; ++g) {
-    float even = 0.0f, odd = 0.0f;
-    const int c_end = (g + 1) * cg;
-    if constexpr (VEC == 4) {
-      const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int c = g * cg; c < c_end; c += 4) {
-        // load4 of bf16 gives (even, odd, even, odd)
-        const float4 a = k.v00 ? load4(k.p00 + c) : z4;
-        const float4 b = k.v01 ? load4(k.p01 + c) : z4;
-        const float4 e = k.v10 ? load4(k.p10 + c) : z4;
-        const float4 f = k.v11 ? load4(k.p11 + c) : z4;
-        const float4 r = load4(r_p + c);
-        even += interp(a.x, b.x, e.x, f.x, wx, wy, gy) * r.x;
-        odd += interp(a.y, b.y, e.y, f.y, wx, wy, gy) * r.y;
-        even += interp(a.z, b.z, e.z, f.z, wx, wy, gy) * r.z;
-        odd += interp(a.w, b.w, e.w, f.w, wx, wy, gy) * r.w;
-      }
-    } else {
-      const float2 z2 = make_float2(0.f, 0.f);
-      for (int c = g * cg; c < c_end; c += 2) {
-        const float2 a = k.v00 ? load_pair(k.p00 + c) : z2;
-        const float2 b = k.v01 ? load_pair(k.p01 + c) : z2;
-        const float2 e = k.v10 ? load_pair(k.p10 + c) : z2;
-        const float2 f = k.v11 ? load_pair(k.p11 + c) : z2;
-        const float2 r = load_pair(r_p + c);
-        even += interp(a.x, b.x, e.x, f.x, wx, wy, gy) * r.x;
-        odd += interp(a.y, b.y, e.y, f.y, wx, wy, gy) * r.y;
-      }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      k_src[r][c] = sp[16 + r * 4 + c];
+      r_t[r][c] = rp[c * 4 + r];          // the ref rotation, transposed
     }
-    out_p[g * g_stride] = __fdiv_rn(__fadd_rn(even, odd), fcg);
+    t_ref[r][0] = rp[r * 4 + 3];
   }
+  // invert_rigid(e_ref) = [[R^T, -R^T t], [0, 0, 0, 1]]
+  float r_t_t[3][1];
+  mm(r_t, t_ref, r_t_t);
+  float inv[4][4];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) inv[r][c] = r_t[r][c];
+    inv[r][3] = -r_t_t[r][0];
+  }
+  inv[3][0] = inv[3][1] = inv[3][2] = 0.0f;
+  inv[3][3] = 1.0f;
+  float e_rel[4][4];
+  mm(e_src, inv, e_rel);
+  float rel_r[3][3], rel_t[3][1];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rel_r[r][c] = e_rel[r][c];
+    rel_t[r][0] = e_rel[r][3];
+  }
+  // invert_intrinsics(k_ref): 1 / f as reciprocal(f) * 1.0, then the
+  // products in the plain code's order
+  const float fx = rp[16], s = rp[17], cx = rp[18], fy = rp[21], cy = rp[22];
+  const float inv_fx = __fmul_rn(__fdiv_rn(1.0f, fx), 1.0f);
+  const float inv_fy = __fmul_rn(__fdiv_rn(1.0f, fy), 1.0f);
+  const float k_inv[3][3] = {
+      {inv_fx, __fmul_rn(__fmul_rn(-s, inv_fx), inv_fy),
+       __fmul_rn(__fmul_rn(__fsub_rn(__fmul_rn(s, cy), __fmul_rn(cx, fy)),
+                           inv_fx),
+                 inv_fy)},
+      {0.0f, inv_fy, __fmul_rn(-cy, inv_fy)},
+      {0.0f, 0.0f, 1.0f}};
+  float k_r[3][3], rot[3][3], trans[3][1];
+  mm(k_src, rel_r, k_r);
+  mm(k_r, k_inv, rot);
+  mm(k_src, rel_t, trans);
+  float* out = rt + static_cast<size_t>(i) * 12;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out[r * 3 + c] = rot[r][c];
+    out[9 + r] = trans[r][0];
+  }
+}
+
+constexpr int kOpThreads = 256;
+
+// one thread per (n, d, pixel): grid (pixel blocks, D, N)
+__global__ void __launch_bounds__(kOpThreads)
+operands_kernel(const float* __restrict__ depth, const float* __restrict__ rt,
+                int* __restrict__ xi, int* __restrict__ yi,
+                float* __restrict__ fx, float* __restrict__ fy,
+                uint8_t* __restrict__ valid, int D, int H, int W, int Hs,
+                int Ws) {
+  const int hw = H * W;
+  const int pix = blockIdx.x * kOpThreads + threadIdx.x;
+  if (pix >= hw) return;
+  const int n = blockIdx.z;
+  const size_t o = (static_cast<size_t>(n) * D + blockIdx.y) * hw + pix;
+  const int y = pix / W;
+  const int x = pix - y * W;
+  const float2 s =
+      warp_geom::sweep_xy(rt + static_cast<size_t>(n) * 12,
+                          static_cast<float>(x), static_cast<float>(y),
+                          depth[o]);
+  const float x0f = floorf(s.x);
+  const float y0f = floorf(s.y);
+  const bool ok = warp_geom::in_reach(x0f, y0f, Hs, Ws);
+  xi[o] = ok ? static_cast<int>(x0f) + 1 : 0;
+  yi[o] = ok ? static_cast<int>(y0f) + 1 : 0;
+  fx[o] = ok ? __fsub_rn(s.x, x0f) : 0.0f;
+  fy[o] = ok ? __fsub_rn(s.y, y0f) : 0.0f;
+  valid[o] = ok;
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). dtype: 0 = float32 features,
-// 1 = bfloat16 features (packed channel pairs: C/G even, 4-byte aligned
-// bases). Returns the cudaError_t of the launch (0 = ok).
+// 1 = bfloat16 features (any C/G, any alignment). Returns the cudaError_t
+// of the launch (0 = ok).
 extern "C" int warp_corr_pre_forward(int dtype, const void* src,
                                      const void* ref, const void* xi,
                                      const void* yi, const void* fx,
@@ -238,45 +260,43 @@ extern "C" int warp_corr_pre_forward(int dtype, const void* src,
                                      void* out, int n, int d, int h, int w,
                                      int hs, int ws, int c, int g,
                                      void* stream) {
+  return warp_geom::corr_forward(
+      dtype, src, ref,
+      CornerSamples{static_cast<const int*>(xi), static_cast<const int*>(yi),
+                    static_cast<const float*>(fx),
+                    static_cast<const float*>(fy),
+                    static_cast<const uint8_t*>(valid)},
+      static_cast<float*>(out), n, d, h, w, hs, ws, c, g,
+      static_cast<cudaStream_t>(stream));
+}
+
+// (xi, yi, fx, fy, valid), each [N, D, H, W], from depth [N, D, H, W] and
+// rt [N, 12] for a source image of hs x ws.
+extern "C" int warp_corr_operands(const void* depth, const void* rt,
+                                  void* xi, void* yi, void* fx, void* fy,
+                                  void* valid, int n, int d, int h, int w,
+                                  int hs, int ws, void* stream) {
   if (n == 0 || d == 0 || h == 0 || w == 0) return 0;
+  if (n > 65535 || d > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int hw = h * w;
-  const dim3 grid((hw + kThreads - 1) / kThreads, d, n);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* xp = static_cast<const int*>(xi);
-  const int* yp = static_cast<const int*>(yi);
-  const float* fxp = static_cast<const float*>(fx);
-  const float* fyp = static_cast<const float*>(fy);
-  const uint8_t* vp = static_cast<const uint8_t*>(valid);
-  float* op = static_cast<float*>(out);
-  const int cg = c / g;
-  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t ra = reinterpret_cast<uintptr_t>(ref);
-  if (dtype == 0) {
-    const float* s = static_cast<const float*>(src);
-    const float* r = static_cast<const float*>(ref);
-    if (cg % 4 == 0 && sa % 16 == 0 && ra % 16 == 0) {
-      k3_f32<4><<<grid, kThreads, 0, st>>>(s, r, xp, yp, fxp, fyp, vp, op,
-                                           d, h, w, hs, ws, c, g);
-    } else {
-      k3_f32<1><<<grid, kThreads, 0, st>>>(s, r, xp, yp, fxp, fyp, vp, op,
-                                           d, h, w, hs, ws, c, g);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (dtype == 1) {
-    if (cg % 2 != 0 || sa % 4 != 0 || ra % 4 != 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(src);
-    const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(ref);
-    if (cg % 4 == 0 && sa % 8 == 0 && ra % 8 == 0) {
-      k3_bf16<4><<<grid, kThreads, 0, st>>>(s, r, xp, yp, fxp, fyp, vp, op,
-                                            d, h, w, hs, ws, c, g);
-    } else {
-      k3_bf16<2><<<grid, kThreads, 0, st>>>(s, r, xp, yp, fxp, fyp, vp, op,
-                                            d, h, w, hs, ws, c, g);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((hw + kOpThreads - 1) / kOpThreads, d, n);
+  operands_kernel<<<grid, kOpThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(depth), static_cast<const float*>(rt),
+      static_cast<int*>(xi), static_cast<int*>(yi), static_cast<float*>(fx),
+      static_cast<float*>(fy), static_cast<uint8_t*>(valid), d, h, w, hs, ws);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rt [N, 12] from src_pair, ref_pair [N, 2, 4, 4], contiguous f32.
+extern "C" int warp_corr_projection(const void* src_pair, const void* ref_pair,
+                                    void* rt, int n, void* stream) {
+  if (n == 0) return 0;
+  constexpr int kThreads = 128;
+  projection_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src_pair), static_cast<const float*>(ref_pair),
+      static_cast<float*>(rt), n);
+  return static_cast<int>(cudaGetLastError());
 }

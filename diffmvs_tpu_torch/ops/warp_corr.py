@@ -7,17 +7,20 @@ Counterparts of the TPU kernels `_corr_kernel_rowbatch`, `_corr_kernel`
 (diffmvs_tpu/ops/pallas/warp_corr.py) and `_bwd_kernel`
 (diffmvs_tpu/ops/pallas/warp_corr_bwd.py). The sources are
 ops/csrc/warp_corr.cu (K1), ops/csrc/warp_corr_bwd.cu (K2) and
-ops/csrc/warp_corr_pre.cu (K3); all include ops/csrc/warp_geom.cuh: K1
-and K2 share its coordinate code, so the backward samples at the
-forward's coordinates bit for bit, and K3 its channel loads. Their header
-notes say what bounds them and how they are laid out.
+ops/csrc/warp_corr_pre.cu (K3 with its operand and projection kernels);
+all include ops/csrc/warp_geom.cuh: K1, K2 and the operand kernel share
+its coordinate code, so they sample at the same coordinates bit for bit,
+and K1 and K3 are two instantiations of its block-tiled forward. Their
+header notes say what bounds them and how they are laid out.
 
 Two modes, as warp_corr_pallas(..., batch_rows=...) has them:
   * batch_rows=True (the model's path): K1 computes the coordinates in the
     kernel from the depths and 12 projection scalars;
-  * batch_rows=False: plane_sweep_coords and corner_split compute the
-    corners, fractions and validity as [N, D, H, W] tensors, and K3 reads
-    them. CPU tensors take K3's plain version (ops/correlation.py).
+  * batch_rows=False: the projection kernel writes the 12 scalars, the
+    operand kernel the corners, fractions and validity as [N, D, H, W]
+    tensors, and K3 reads them. CPU tensors take the plain versions
+    (projection_scalars, corner_operands_rt and
+    ops/correlation.corner_correlate_plain).
 
 Build: on the first CUDA call, nvcc compiles each .cu file into a shared
 library with a plain C interface under <repo>/build/diffmvs_tpu_torch/
@@ -59,14 +62,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launch counters: `launches` counts every K1 launch, `bwd_launches` every
-# K2 launch, `pre_launches` every K3 launch; the Counters split the same
-# launches by (D, H, W, C) shape
+# K2 launch, `pre_launches` every K3 launch, `operand_launches` and
+# `projection_launches` every launch of K3's operand and projection
+# kernels; the Counters split the same launches by (D, H, W, C) shape
 launches = 0
 launches_by_shape: collections.Counter = collections.Counter()
 bwd_launches = 0
 bwd_launches_by_shape: collections.Counter = collections.Counter()
 pre_launches = 0
 pre_launches_by_shape: collections.Counter = collections.Counter()
+operand_launches = 0
+projection_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -75,10 +81,13 @@ _pre_lib = None
 
 
 def reset_counts():
-    global launches, bwd_launches, pre_launches
+    global launches, bwd_launches, pre_launches, operand_launches
+    global projection_launches
     launches = 0
     bwd_launches = 0
     pre_launches = 0
+    operand_launches = 0
+    projection_launches = 0
     launches_by_shape.clear()
     bwd_launches_by_shape.clear()
     pre_launches_by_shape.clear()
@@ -159,6 +168,12 @@ def _load_pre():
             [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
             + [ctypes.c_void_p])
         lib.warp_corr_pre_forward.restype = ctypes.c_int
+        lib.warp_corr_operands.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.warp_corr_operands.restype = ctypes.c_int
+        lib.warp_corr_projection.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+        lib.warp_corr_projection.restype = ctypes.c_int
         _pre_lib = lib
     return _pre_lib
 
@@ -235,11 +250,21 @@ class WarpCorr(torch.autograd.Function):
                 None, None, None)
 
 
-def _check_forward(src_fea, ref_fea, rt, depth_values, groups):
-    tensors = (src_fea, ref_fea, rt, depth_values)
-    dev = src_fea.device
+def _check_cuda(what, tensors):
+    """The device of tensors: one CUDA device of compute capability 9.0,
+    every tensor contiguous; raises otherwise."""
+    dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("warp_corr: all tensors must be on one CUDA device")
+        raise ValueError(f"{what}: all tensors must be on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        raise RuntimeError(f"{what}: built for sm_90a (H100/H200) only")
+    return dev
+
+
+def _check_forward(src_fea, ref_fea, rt, depth_values, groups):
+    _check_cuda("warp_corr", (src_fea, ref_fea, rt, depth_values))
     if src_fea.dtype not in _DTYPE_CODE or ref_fea.dtype != src_fea.dtype:
         raise TypeError(f"warp_corr: features must both be float32 or "
                         f"bfloat16, got {src_fea.dtype}/{ref_fea.dtype}")
@@ -258,10 +283,6 @@ def _check_forward(src_fea, ref_fea, rt, depth_values, groups):
     if groups <= 0 or c % groups != 0 or hs == 0 or ws == 0:
         raise ValueError(f"warp_corr: C={c} not divisible by G={groups} "
                          f"or empty source")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("warp_corr: inputs must be contiguous")
-    if torch.cuda.get_device_capability(dev) != (9, 0):
-        raise RuntimeError("warp_corr: built for sm_90a (H100/H200) only")
 
 
 def _launch_forward(src_fea, ref_fea, rt, depth_values, groups):
@@ -350,39 +371,55 @@ def corner_split(x, y, hs, ws):
     return xi, yi, fx, fy, valid
 
 
+def corner_operands_rt(rt, depth_values, hs, ws):
+    """The operand kernel's plain version: (xi, yi, fx, fy, valid) of one
+    source view of hs x ws from the [N, 12] projection scalars and the
+    depths [N, D, H, W], without gradient."""
+    n = rt.shape[0]
+    with torch.no_grad():
+        x, y = plane_sweep_coords(rt[:, :9].reshape(n, 3, 3), rt[:, 9:],
+                                  depth_values)
+        return corner_split(x, y, hs, ws)
+
+
 def corner_operands(src_fea, src_pair, ref_pair, depth_values):
     """(xi, yi, fx, fy, valid) of one source view, without gradient: the
-    operands K3 and its plain version read."""
-    hs, ws = src_fea.shape[1], src_fea.shape[2]
-    with torch.no_grad():
-        rot, trans = relative_projection(src_pair.float(), ref_pair.float())
-        x, y = plane_sweep_coords(rot, trans, depth_values)
-        return corner_split(x, y, hs, ws)
+    operands K3 and its plain version read, computed in plain PyTorch (the
+    CPU path, and the oracle of the operand kernel on the card)."""
+    return corner_operands_rt(projection_scalars(src_pair, ref_pair),
+                              depth_values, src_fea.shape[1],
+                              src_fea.shape[2])
 
 
 def warp_corr_pre(src_fea, ref_fea, src_pair, ref_pair, depth_values,
                   groups):
     """warp_corr(..., batch_rows=False): the corner operands, then K3.
 
-    Same arguments and result as warp_corr. On CPU tensors it returns K3's
-    plain version (ops/correlation.corner_correlate_plain); on CUDA
-    tensors it launches K3 (inside WarpCorrPre, whose backward is K2) or
-    raises.
+    Same arguments and result as warp_corr. The projection is computed
+    once and serves the operands and the backward. On CPU tensors it
+    returns the plain versions (projection_scalars, corner_operands_rt,
+    then ops/correlation.corner_correlate_plain); on CUDA tensors it
+    launches the projection kernel, the operand kernel and K3 (inside
+    WarpCorrPre, whose backward is K2) or raises.
     """
-    ops = corner_operands(src_fea, src_pair, ref_pair, depth_values)
+    hs, ws = src_fea.shape[1], src_fea.shape[2]
     if src_fea.device.type == "cpu":
         from diffmvs_tpu_torch.ops.correlation import corner_correlate_plain
+        rt = projection_scalars(src_pair, ref_pair)
+        ops = corner_operands_rt(rt, depth_values, hs, ws)
         return corner_correlate_plain(src_fea, ref_fea, *ops, groups)
     _check_grad_dtype(src_fea, ref_fea)
-    return WarpCorrPre.apply(src_fea, ref_fea, *ops,
-                             projection_scalars(src_pair, ref_pair),
-                             depth_values, groups)
+    rt = launch_projection(src_pair, ref_pair)
+    ops = launch_operands(rt, depth_values, hs, ws)
+    return WarpCorrPre.apply(src_fea, ref_fea, *ops, rt, depth_values,
+                             groups)
 
 
 class WarpCorrPre(torch.autograd.Function):
     """K3 forward, K2 backward: K2 is the gradient of the exact forward at
-    the coordinates K1 computes, which corner_split's operands reproduce
-    bit for bit. No gradient for the operands, projections or depths."""
+    the coordinates K1 computes, which the operand kernel's operands
+    reproduce bit for bit. No gradient for the operands, projections or
+    depths."""
 
     @staticmethod
     def forward(ctx, src_fea, ref_fea, xi, yi, fx, fy, valid, rt,
@@ -398,22 +435,80 @@ class WarpCorrPre(torch.autograd.Function):
         return (d_src, d_ref) + (None,) * 8
 
 
+def launch_projection(src_pair, ref_pair):
+    """The projection kernel (CUDA tensors only): projection_scalars'
+    [N, 12] float32 scalars, bit for bit, in one launch instead of
+    relative_projection's chain of about a hundred small ops.
+    src_pair/ref_pair [N, 2, 4, 4]."""
+    global projection_launches
+    src_pair = src_pair.float().contiguous()
+    ref_pair = ref_pair.float().contiguous()
+    dev = _check_cuda("warp_corr_projection", (src_pair, ref_pair))
+    if (src_pair.dim() != 4 or tuple(src_pair.shape[1:]) != (2, 4, 4)
+            or tuple(ref_pair.shape) != tuple(src_pair.shape)):
+        raise ValueError(f"warp_corr_projection: pairs "
+                         f"{tuple(src_pair.shape)} / {tuple(ref_pair.shape)}"
+                         f" are not [N, 2, 4, 4]")
+    n = src_pair.shape[0]
+    lib = _load_pre()
+    rt = torch.empty((n, 12), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.warp_corr_projection(
+            src_pair.data_ptr(), ref_pair.data_ptr(), rt.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warp_corr_projection: kernel launch failed, "
+                           f"cudaError {err}")
+    projection_launches += 1
+    return rt
+
+
+def launch_operands(rt, depth_values, hs, ws):
+    """The operand kernel (CUDA tensors only): (xi, yi, fx, fy, valid) as
+    corner_operands_rt gives them, from rt [N, 12] and depth_values
+    [N, D, H, W], contiguous float32, for a source image of hs x ws."""
+    global operand_launches
+    dev = _check_cuda("warp_corr_operands", (depth_values, rt))
+    if depth_values.dtype != torch.float32 or rt.dtype != torch.float32:
+        raise TypeError("warp_corr_operands: depth_values and rt must be "
+                        "float32")
+    if depth_values.dim() != 4:
+        raise ValueError("warp_corr_operands: expected 4-D depths")
+    n, d, h, w = depth_values.shape
+    if tuple(rt.shape) != (n, 12) or hs <= 0 or ws <= 0:
+        raise ValueError(f"warp_corr_operands: rt {tuple(rt.shape)} for "
+                         f"depths {tuple(depth_values.shape)}, source "
+                         f"{hs}x{ws}")
+    lib = _load_pre()
+    xi = torch.empty((n, d, h, w), dtype=torch.int32, device=dev)
+    yi = torch.empty_like(xi)
+    fx = torch.empty((n, d, h, w), dtype=torch.float32, device=dev)
+    fy = torch.empty_like(fx)
+    valid = torch.empty((n, d, h, w), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.warp_corr_operands(
+            depth_values.data_ptr(), rt.data_ptr(), xi.data_ptr(),
+            yi.data_ptr(), fx.data_ptr(), fy.data_ptr(), valid.data_ptr(), n,
+            d, h, w, hs, ws, stream)
+    if err != 0:
+        raise RuntimeError(f"warp_corr_operands: kernel launch failed, "
+                           f"cudaError {err}")
+    operand_launches += 1
+    return xi, yi, fx, fy, valid
+
+
 def launch_pre(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
     """K3 (CUDA tensors only): returns the contiguous [N, G, D, H, W]
     float32 buffer.
 
     src_fea [N, Hs, Ws, C], ref_fea [N, H, W, C] contiguous float32 or
-    bfloat16 (bfloat16 needs an even C/G: channel pairs); xi, yi int32,
-    fx, fy float32, valid bool, each contiguous [N, D, H, W], as
-    corner_split gives them.
+    bfloat16 (any C/G, any alignment); xi, yi int32, fx, fy float32, valid
+    bool, each contiguous [N, D, H, W], as corner_split gives them.
     """
     global pre_launches
     operands = (xi, yi, fx, fy, valid)
-    tensors = (src_fea, ref_fea) + operands
-    dev = src_fea.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("warp_corr_pre: all tensors must be on one CUDA "
-                         "device")
+    dev = _check_cuda("warp_corr_pre", (src_fea, ref_fea) + operands)
     if src_fea.dtype not in _DTYPE_CODE or ref_fea.dtype != src_fea.dtype:
         raise TypeError(f"warp_corr_pre: features must both be float32 or "
                         f"bfloat16, got {src_fea.dtype}/{ref_fea.dtype}")
@@ -434,16 +529,6 @@ def launch_pre(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
     if groups <= 0 or c % groups != 0 or hs == 0 or ws == 0:
         raise ValueError(f"warp_corr_pre: C={c} not divisible by G={groups} "
                          f"or empty source")
-    if src_fea.dtype == torch.bfloat16 and (
-            (c // groups) % 2 or src_fea.data_ptr() % 4
-            or ref_fea.data_ptr() % 4):
-        raise ValueError("warp_corr_pre: bfloat16 features are read as "
-                         "channel pairs: C/G must be even and the tensors "
-                         "4-byte aligned")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("warp_corr_pre: inputs must be contiguous")
-    if torch.cuda.get_device_capability(dev) != (9, 0):
-        raise RuntimeError("warp_corr_pre: built for sm_90a (H100/H200) only")
     lib = _load_pre()
     out = torch.empty((n, groups, d, h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -1,6 +1,7 @@
 """K1 and K2 on the card at the main path's and the training cell's
-shapes: CUDA-event times with L2 warm and with L2 flushed, beside each
-kernel's bound.
+shapes, K3 (with its operands and its entry, warp_corr(...,
+batch_rows=False)) at the three DTU shapes: CUDA-event times with L2 warm
+and with L2 flushed, beside each kernel's bound.
 
     python3 diffmvs_tpu_torch/tools/kernel_times.py [--root DIR]
 
@@ -11,8 +12,10 @@ call on one card, e.g. an earlier commit unpacked with `git archive`
 on the card from fixed seeds, the same for every tree. Prints one JSON
 line: the kernel module timed, the card (`nvidia-smi` name and power
 limit) and, per kernel and shape, the median ms warm (with and without
-the host's launch gap) and L2-cold, and the bound. Needs CUDA; fails
-without it.
+the host's launch gap) and L2-cold, and the bound. K3's operands are timed
+through the tree's operand kernel, or, in a tree that has none, through
+its plain corner_operands (the route is named). Needs CUDA; fails without
+it.
 
 chip_smoke.py takes its timing, bounds and inputs from here too.
 """
@@ -39,7 +42,8 @@ INFER_SHAPES = {"sweep": ("stage1", 48, 48, 8),
                 "stage2": ("stage2", 4, 32, 4),
                 "stage3": ("stage3", 4, 16, 2),
                 "diffmvs_refine": ("stage2", 6, 32, 4)}
-TRAIN_SHAPES = {k: INFER_SHAPES[k] for k in ("sweep", "stage2", "stage3")}
+DTU_SHAPES = ("sweep", "stage2", "stage3")
+TRAIN_SHAPES = {k: INFER_SHAPES[k] for k in DTU_SHAPES}
 INFER_HW, TRAIN_HW, TRAIN_B, VIEWS = (1152, 1600), (512, 640), 4, 5
 
 
@@ -99,6 +103,25 @@ def warp_bound(n, d, h, w, hs, ws, c, g, feat_bytes):
     nbytes = (n * g * d * h * w * 4 + n * h * w * c * feat_bytes
               + n * hs * ws * c * feat_bytes + n * d * h * w * 4 + n * 48)
     return bound(nbytes, n * d * h * w * (20 + 11 * c + g))
+
+
+def pre_bound(n, d, h, w, hs, ws, c, g, feat_bytes):
+    """K3: the output written once and src, ref and the five corner
+    operands (int32 xi, yi, f32 fx, fy, a validity byte: 17 bytes per
+    plane-pixel) read once, against ~10 operations per plane-pixel, 11 per
+    channel (two y-lerps, the x-lerp, the product-accumulate) and 1 per
+    group mean."""
+    nbytes = (n * g * d * h * w * 4 + n * h * w * c * feat_bytes
+              + n * hs * ws * c * feat_bytes + n * d * h * w * 17)
+    return bound(nbytes, n * d * h * w * (10 + 11 * c + g))
+
+
+def operands_bound(n, d, h, w):
+    """K3's operand kernel: the depths (4 bytes per plane-pixel) and the
+    projection scalars read once, the five operands (17 bytes) written
+    once, against ~20 operations per plane-pixel for the coordinates and
+    ~10 for the split."""
+    return bound(n * d * h * w * 21 + n * 48, n * d * h * w * 30)
 
 
 def bwd_bound(n, d, h, w, hs, ws, c, g, inside, corners):
@@ -198,6 +221,50 @@ def shape_inputs(name, n, hw, dev, gen, smooth=False):
     return pairs[:, VIEWS - 1], pairs[:, 0], depth, d, c, h, w
 
 
+def time_k3(warp_corr, res, dev, gen):
+    """K3 (launch_pre on the plain operands), its operands and its entry
+    warp_corr(..., batch_rows=False) at the DTU shapes, f32 and bf16,
+    random and (refinement stages) smooth depths, into res["k3"] and
+    res["k3_operands"]; the projection scalars of one call (the tree's
+    projection kernel, or projection_scalars) into res["k3_projection"]."""
+    kernel = getattr(warp_corr, "launch_operands", None)
+    projection = getattr(warp_corr, "launch_projection", None)
+    cases = [(name, False) for name in DTU_SHAPES] + [
+        (name, True) for name in DTU_SHAPES if name != "sweep"]
+    for name, smooth in cases:
+        sp, rp, depth, d, c, h, w = shape_inputs(name, 1, INFER_HW, dev, gen,
+                                                 smooth)
+        src32 = torch.randn(1, h, w, c, device=dev, generator=gen)
+        ref32 = torch.randn(1, h, w, c, device=dev, generator=gen)
+        tag = name + (":smooth" if smooth else "")
+        if name == "sweep":
+            res["k3_projection"] = dict(
+                **timings(lambda: (projection or warp_corr.projection_scalars)
+                          (sp, rp)),
+                route="kernel" if projection is not None else "plain")
+        with torch.inference_mode():
+            ops = warp_corr.corner_operands(src32, sp, rp, depth)
+            if kernel is not None:
+                rt = warp_corr.projection_scalars(sp, rp)
+                times = timings(lambda: kernel(rt, depth, h, w))
+            else:
+                times = timings(lambda: warp_corr.corner_operands(
+                    src32, sp, rp, depth))
+            res["k3_operands"][tag] = dict(
+                **times, bound_ms=operands_bound(1, d, h, w)[0],
+                route="kernel" if kernel is not None else "plain")
+            for dt, dtag in ((torch.float32, "f32"),
+                             (torch.bfloat16, "bf16")):
+                src, ref = src32.to(dt), ref32.to(dt)
+                times = timings(lambda: warp_corr.launch_pre(src, ref, *ops,
+                                                             4))
+                entry = timings(lambda: warp_corr.warp_corr(
+                    src, ref, sp, rp, depth, 4, batch_rows=False))
+                b, _ = pre_bound(1, d, h, w, h, w, c, 4, src.element_size())
+                res["k3"][f"{tag}:{dtag}"] = dict(**times, bound_ms=b,
+                                                  entry=entry)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve()
@@ -217,7 +284,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"module": warp_corr.__file__, "smi": smi,
-           "k1": {}, "k2": {}}
+           "k1": {}, "k2": {}, "k3": {}, "k3_operands": {}}
     # the refinement shapes also with smooth depth maps (make_depth)
     cases = [(name, False) for name in INFER_SHAPES] + [
         (name, True) for name in INFER_SHAPES if name != "sweep"]
@@ -250,6 +317,7 @@ def main(argv=None):
         b, _ = bwd_bound(TRAIN_B, d, h, w, h, w, c, 4, inside, corners)
         res["k2"][name + (":smooth" if smooth else "")] = dict(
             **times, bound_ms=b)
+    time_k3(warp_corr, res, dev, gen)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -138,15 +138,17 @@ def test_aggregate_views(rng):
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
-def _corr_case(rng, case):
+def _corr_case(rng, case, channels=None):
     """(src, ref, src_pair, ref_pair, depths, window_group) numpy inputs.
 
     "refine": 48x128, C=16, D=4 banded hypotheses (stage-3 geometry);
-    "sweep": 48x100, C=32, a uniform 8-plane sweep (stage-1 geometry)."""
+    "sweep": 48x100, C=32, a uniform 8-plane sweep (stage-1 geometry);
+    `channels` overrides C."""
     if case == "refine":
         hs, ws, c, d, stage, fullmul = 48, 128, 16, 4, "stage3", 2
     else:
         hs, ws, c, d, stage, fullmul = 48, 100, 32, 8, "stage1", 8
+    c = channels or c
     projs = stage_projs(make_cams(2, hs * fullmul, ws * fullmul))[stage]
     src = rng.randn(1, hs, ws, c).astype(np.float32)
     ref = rng.randn(1, hs, ws, c).astype(np.float32)
@@ -206,6 +208,7 @@ def test_kernel_module_imports_without_nvcc():
             "assert w._lib is None and w._bwd_lib is None; "
             "assert w._pre_lib is None; "
             "assert w.launches == w.bwd_launches == w.pre_launches == 0; "
+            "assert w.operand_launches == w.projection_launches == 0; "
             "assert all(p.exists() for p in w.SOURCES.values()); "
             "assert all(p.exists() for p in w.HEADERS)")
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
@@ -295,16 +298,21 @@ def test_corner_split_decides_validity_before_the_cast():
     assert (xi[..., 5].item(), fx[..., 5].item()) == (3, 0.5)
 
 
-@pytest.mark.parametrize("packed", [False, True], ids=["f32", "packed_bf16"])
-def test_k3_plain_matches_jax_k3(rng, packed):
+@pytest.mark.parametrize("dtype, packed, channels, groups", [
+    ("f32", False, 16, 4), ("bf16", True, 16, 4), ("bf16", None, 24, 8)],
+    ids=["f32", "packed_bf16", "bf16"])
+def test_k3_plain_matches_jax_k3(rng, dtype, packed, channels, groups):
     """K3's plain version against the TPU kernel `_corr_kernel` in
     interpret mode (warp_corr_pallas(batch_rows=False)), on a refinement
-    geometry where its windows and bands miss no sample."""
-    src, ref, sp, rp, depths, _ = _corr_case(rng, "refine")
+    geometry where its windows and bands miss no sample: f32, bf16 in the
+    packed mode (channel pairs, even C/G) and bf16 in the default mode at
+    C/G = 3. The plain version sums each group in channel order; the
+    packed mode's evens + odds differ from that only in rounding."""
+    src, ref, sp, rp, depths, _ = _corr_case(rng, "refine", channels)
     miss = warp_corr_miss_fraction(src, sp, rp, depths, window_group=0,
                                    tile=64)
     assert float(miss) == 0.0
-    if packed:
+    if dtype == "bf16":
         src = np.array(jnp.asarray(src, jnp.bfloat16).astype(jnp.float32))
         ref = np.array(jnp.asarray(ref, jnp.bfloat16).astype(jnp.float32))
         jsrc, jref = (jnp.asarray(a, jnp.bfloat16) for a in (src, ref))
@@ -312,9 +320,9 @@ def test_k3_plain_matches_jax_k3(rng, packed):
     else:
         jsrc, jref, tsrc, tref = src, ref, T(src), T(ref)
     want = np.asarray(jax.jit(lambda *a: warp_corr_pallas(
-        *a, 4, batch_rows=False, packed=packed, interpret=True))(
+        *a, groups, batch_rows=False, packed=packed, interpret=True))(
             jsrc, jref, sp, rp, depths))
-    got = warp_corr.warp_corr(tsrc, tref, T(sp), T(rp), T(depths), 4,
+    got = warp_corr.warp_corr(tsrc, tref, T(sp), T(rp), T(depths), groups,
                               batch_rows=False)
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(_np(got), want, **CORR_TOL)
@@ -369,8 +377,60 @@ def test_k3_mode_takes_plain_path_on_cpu(rng, monkeypatch):
     assert warp_corr.pre_launches == before
 
 
+def test_k3_mode_takes_bf16_at_odd_channels_per_group(rng):
+    """bf16 features at C/G = 3 through warp_corr(..., batch_rows=False)
+    on the CPU: the plain result, the bf16 values summed in f32."""
+    src, ref, sp, rp, depths, _ = _corr_case(rng, "refine", 24)
+    s, r = (T(a).to(torch.bfloat16) for a in (src, ref))
+    got = warp_corr.warp_corr(s, r, T(sp), T(rp), T(depths), 8,
+                              batch_rows=False)
+    ops = warp_corr.corner_operands(s, T(sp), T(rp), T(depths))
+    assert got.shape == (1, 4, 48, 128, 8) and got.dtype == torch.float32
+    assert torch.equal(got, correlation.corner_correlate_plain(s, r, *ops, 8))
+    want = correlation.corner_correlate_plain(s.float(), r.float(), *ops, 8)
+    assert torch.equal(got, want)
+
+
+def test_corner_operands_match_jax(rng):
+    """The operand kernel's plain version (from the [N, 12] projection
+    scalars) against the JAX package's plane_sweep_coords + _corner_split,
+    with degenerate depths in the first row: the same validity, the
+    coordinates corner + fraction to COORD_TOL (XLA may contract other
+    products on the CPU), zeros where invalid."""
+    src, _, sp, rp, depths, _ = _corr_case(rng, "sweep")
+    depths = depths.copy()
+    depths[:, :, 0, :4] = [0.0, -5.0, 1e-30, 1e30]
+    _, hs, ws, _ = src.shape
+    rot, trans = jtransforms.relative_projection(sp, rp)
+    x, y = jwarp.plane_sweep_coords(rot, trans, depths)
+    want = [np.asarray(a) for a in _corner_split(x, y, hs, ws)]
+    got = [_np(a) for a in warp_corr.corner_operands(
+        T(src), T(sp), T(rp), T(depths))]
+    np.testing.assert_array_equal(got[4], want[4])
+    v = want[4]
+    assert 0 < v.mean() < 1
+    for i in (0, 1):
+        np.testing.assert_allclose(got[i][v] - 1 + got[i + 2][v],
+                                   want[i][v] - 1 + want[i + 2][v],
+                                   **COORD_TOL)
+    assert not any(g[~v].any() for g in got[:4])
+
+
 def test_k3_kernel_refuses_cpu_tensors(rng):
     src, ref, sp, rp, depths, _ = _corr_case(rng, "refine")
     ops = warp_corr.corner_operands(T(src), T(sp), T(rp), T(depths))
     with pytest.raises(ValueError, match="CUDA"):
         warp_corr.launch_pre(T(src), T(ref), *ops, 4)
+
+
+def test_operand_kernel_refuses_cpu_tensors(rng):
+    _, _, sp, rp, depths, _ = _corr_case(rng, "refine")
+    rt = warp_corr.projection_scalars(T(sp), T(rp))
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_corr.launch_operands(rt, T(depths), 48, 128)
+
+
+def test_projection_kernel_refuses_cpu_tensors(rng):
+    _, _, sp, rp, _, _ = _corr_case(rng, "refine")
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_corr.launch_projection(T(sp), T(rp))
