@@ -19,28 +19,38 @@ Phases (one line each; any failure exits non-zero):
                      degenerate depths
   4. train_kernel -- K2 against autograd of the plain version at the
                      training shapes (B=4 at 512x640: the sweep and the two
-                     refinement stages) with degenerate depths, plus
-                     batched odd sizes through the vector and scalar paths,
-                     C / K above 256 (launches over channel slices) and
-                     depths that jump by decades from plane to plane;
-                     times as in kernel, bound, global atomic counts
+                     refinement stages) with degenerate depths, f32 and
+                     bf16 features, plus batched odd sizes through the
+                     vector and scalar paths, C / K above 256 (launches
+                     over channel slices) and depths that jump by decades
+                     from plane to plane, in both dtypes; times as in
+                     kernel, bound, global atomic counts
   5. small        -- the port on CUDA against the port on the CPU (the path
-                     the CPU tests hold against JAX), same weights, 64x96
+                     the CPU tests hold against JAX), same weights, 64x96,
+                     f32 and bf16 compute
   6. main         -- CasDiffMVS export inference at DTU size (1152x1600, 5
                      views, 48/384 hypotheses, f32, random weights from
                      seed 0): 3 requests through DepthRunner; 28 K1
                      launches each; the first request again with the plain
                      warp in place of the kernel must agree
-  7. train_small  -- one train step of the port on CUDA against the same
+  7. main_bf16    -- the same in bf16 compute (the configuration bench.py
+                     serves), beside main's maps/s and peak memory
+  8. train_small  -- one train step of the port on CUDA against the same
                      step on the CPU at 64x96 (same weights, batch,
-                     timesteps and noise): loss and gradient direction
-  8. train        -- the training cell: CasDiffMVS f32, B=4, 5 views,
+                     timesteps and noise), f32, and bf16 with remat:
+                     loss and gradient direction
+  9. train        -- the training cell: CasDiffMVS f32, B=4, 5 views,
                      512x640, 48/384 hypotheses, random init from seed 0,
                      run_training over 5 steps (the first a warm-up): 28
                      K1 + 28 K2 launches and a finite loss and gradient
                      norm every step; one step's gradients against the
                      same step with the plain warp in place of the kernels
-  9. k3_kernel    -- K3 and its operand and projection kernels, warp_corr(
+ 10. train_bf16   -- the same in bf16 compute with remat (the configuration
+                     bench.py trains in): 52 K1 (the backward recomputes
+                     each refinement iteration) + 28 K2 launches a step;
+                     also one step's gradients with remat off; samples/s
+                     and peak memory beside train's
+ 11. k3_kernel    -- K3 and its operand and projection kernels, warp_corr(
                      ..., batch_rows=False), their only path: the projection
                      kernel bit for bit against projection_scalars; K3
                      against its plain version and against K1 on the same
@@ -55,7 +65,7 @@ Phases (one line each; any failure exits non-zero):
                      in f32 and bf16, G = 1, 8, 257 and 520, misaligned
                      bases); the gradients through K3 against those through
                      K1 (both K2) at the training stage-3 shape
- 10. export       -- the scene export entry point as a user runs it:
+ 12. export       -- the scene export entry point as a user runs it:
                      cli.test.main on a synthetic DTU-layout scan of 7 views
                      at 1152x1600 (uint8 .npy serving caches), CasDiffMVS
                      f32 48/384, 5 views per depth map, random weights from
@@ -66,9 +76,10 @@ Phases (one line each; any failure exits non-zero):
                      accuracy/completeness against a plane on card and CPU;
                      views/s and its split into load, inference, write and
                      fusion on the host's and the card's clock
-Then a JSON line of per-kernel numbers (K1's launches from main, K2's from
-train, K3's, the operand and the projection kernel's from the k3_kernel
-entry calls), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+Then a JSON line of per-kernel numbers (K1's launches from main and
+main_bf16, K2's from train and train_bf16, K3's, the operand and the
+projection kernel's from the k3_kernel entry calls), the nvidia-smi line,
+and last {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
 """
@@ -90,6 +101,11 @@ from diffmvs_tpu_torch.tools.kernel_times import (
     pre_bound, sample_counts, timings, warp_bound)
 
 CORR_TOL = dict(rtol=1e-4, atol=1e-5)
+# K2's bf16 gradients against the plain version's: both are the bf16
+# roundings of float32 sums taken in other orders, so they differ by at
+# most one bf16 ulp (2^-8 to 2^-7 relative) where a sum lies near a
+# rounding boundary, and by the float32 sums' own difference near zero
+BF16_GRAD_TOL = dict(rtol=2 ** -7, atol=1e-5)
 REPO = Path(__file__).resolve().parent
 
 
@@ -180,6 +196,7 @@ def phase_kernel(run):
                                 card_ms=t["card_ms"], plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by)
         run["k1_rows"][(d, h, w, c)] = (name, row["f32"])
+        run["k1_rows_bf16"][(d, h, w, c)] = (name, row["bf16"])
 
     # batched samples with their own projections, odd sizes (ragged
     # tiles), degenerate depths in the first row, through every load width
@@ -240,7 +257,8 @@ def grads_of(fn, src, ref, g_out):
 
 
 def phase_train_kernel(run):
-    """K2 against autograd of the plain version at the training shapes."""
+    """K2 against autograd of the plain version at the training shapes,
+    f32 and bf16 features."""
     from diffmvs_tpu_torch.ops import warp_corr
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
@@ -256,85 +274,99 @@ def phase_train_kernel(run):
         pairs = torch.from_numpy(projs[stage]).to(dev)
         sp, rp = pairs[:, views - 1], pairs[:, 0]
         depth = make_depth(name, n, d, h, w, dev, gen)
-        src = torch.randn(n, h, w, c, device=dev, generator=gen)
-        ref = torch.randn(n, h, w, c, device=dev, generator=gen)
+        src32 = torch.randn(n, h, w, c, device=dev, generator=gen)
+        ref32 = torch.randn(n, h, w, c, device=dev, generator=gen)
         g = torch.randn(n, 4, d, h, w, device=dev, generator=gen)
         g_out = g.permute(0, 2, 3, 4, 1)                # [N, D, H, W, G]
-
-        want = grads_of(lambda a, b: warp_and_correlate_plain(
-            a, b, sp, rp, depth, 4), src, ref, g_out)
-        got = grads_of(lambda a, b: warp_corr.warp_corr(
-            a, b, sp, rp, depth, 4), src, ref, g_out)
-        torch.cuda.synchronize()
-        for k, wnt, what in zip(got, want, ("d_src", "d_ref")):
-            torch.testing.assert_close(k, wnt, **CORR_TOL, msg=lambda m: (
-                f"{name} {what}: {m}"))
-        err = max((k - wnt).abs().max().item() for k, wnt in zip(got, want))
-
-        rt = warp_corr.projection_scalars(sp, rp)
-        t = timings(lambda: warp_corr.warp_corr_backward(src, ref, rt, depth,
-                                                         g, 4))
-        src_p = src.detach().requires_grad_()
-        ref_p = ref.detach().requires_grad_()
-        out_p = warp_and_correlate_plain(src_p, ref_p, sp, rp, depth, 4)
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(
-            out_p, (src_p, ref_p), g_out, retain_graph=True))
-        del out_p
         samples, inside, corners = sample_counts(sp, rp, depth, h, w)
-        bound_ms, bound_by = bwd_bound(n, d, h, w, h, w, c, 4, inside,
-                                       corners)
-        v4, scalar = k2_global_atomics(sp, rp, depth, h, w, c)
-        log("train_kernel", shape=name, N=n, D=d, C=c, hw=f"{h}x{w}",
-            max_abs_err=f"{err:.3e}", ms=f"{t['ms']:.4f}",
-            card_ms=f"{t['card_ms']:.4f}", cold_ms=f"{t['cold_ms']:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-            bound_by=bound_by, global_atomics_v4=v4,
-            scalar_atomics_one_per_channel=scalar,
-            fewer_by=f"{scalar / max(1, v4):.2f}",
-            in_image_samples=f"{inside / samples:.3f}")
-        run["k2_rows"][(d, h, w, c)] = (name, dict(
-            max_abs_err=err, ms=t["ms"], card_ms=t["card_ms"],
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+        rt = warp_corr.projection_scalars(sp, rp)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            tol = CORR_TOL if dt == torch.float32 else BF16_GRAD_TOL
+            src, ref = src32.to(dt), ref32.to(dt)
+            want = grads_of(lambda a, b: warp_and_correlate_plain(
+                a, b, sp, rp, depth, 4), src, ref, g_out)
+            got = grads_of(lambda a, b: warp_corr.warp_corr(
+                a, b, sp, rp, depth, 4), src, ref, g_out)
+            torch.cuda.synchronize()
+            for k, wnt, what in zip(got, want, ("d_src", "d_ref")):
+                check(k.dtype == dt, f"{name} {tag} {what} dtype {k.dtype}")
+                torch.testing.assert_close(
+                    k.float(), wnt.float(), **tol,
+                    msg=lambda m: f"{name} {tag} {what}: {m}")
+            err = max((k.float() - wnt.float()).abs().max().item()
+                      for k, wnt in zip(got, want))
+
+            t = timings(lambda: warp_corr.warp_corr_backward(
+                src, ref, rt, depth, g, 4))
+            src_p = src.detach().requires_grad_()
+            ref_p = ref.detach().requires_grad_()
+            out_p = warp_and_correlate_plain(src_p, ref_p, sp, rp, depth, 4)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                out_p, (src_p, ref_p), g_out, retain_graph=True))
+            del out_p
+            bound_ms, bound_by = bwd_bound(n, d, h, w, h, w, c, 4, inside,
+                                           corners, src.element_size())
+            v4, scalar = k2_global_atomics(sp, rp, depth, h, w, c)
+            log("train_kernel", shape=name, dtype=tag, N=n, D=d, C=c,
+                hw=f"{h}x{w}", max_abs_err=f"{err:.3e}",
+                tol=f"rtol={tol['rtol']:.3g},atol={tol['atol']:.0e}",
+                ms=f"{t['ms']:.4f}", card_ms=f"{t['card_ms']:.4f}",
+                cold_ms=f"{t['cold_ms']:.4f}", plain_ms=f"{plain_ms:.4f}",
+                bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                global_atomics_v4=v4, scalar_atomics_one_per_channel=scalar,
+                fewer_by=f"{scalar / max(1, v4):.2f}",
+                in_image_samples=f"{inside / samples:.3f}")
+            rows = run["k2_rows" if tag == "f32" else "k2_rows_bf16"]
+            rows[(d, h, w, c)] = (name, dict(
+                max_abs_err=err, ms=t["ms"], card_ms=t["card_ms"],
+                cold_ms=t["cold_ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by))
 
     # batched samples with odd sizes and degenerate depths in the first
-    # row through the float4 path (C/G = 4, 12) and the scalar one (C/G =
+    # row through the vector path (C/G = 4, 12) and the scalar one (C/G =
     # 3, 6, a base 4 bytes off), G = 1; more channel lanes than a block has
-    # threads (C = 1040 float4, C = 264 and 1040 scalar: launches over
+    # threads (C = 1040 vector, C = 264 and 1040 scalar: launches over
     # channel slices); then depths from 1e-2 to 1e3 drawn per pixel and
     # plane, whose corners move to other source pixels at every plane, so
-    # no sum is held across planes
+    # no sum is held across planes; f32 and bf16 features
     n, d, h, w = 2, 5, 37, 53
     sp, rp = odd_pairs(projs, dev)
     wide = 10.0 ** (5.0 * torch.rand(n, d, h, w, device=dev,
                                      generator=gen) - 2.0)
     odd = []
-    for c, groups, shift, depth in (
-            (12, 4, 0, odd_depth(n, d, h, w, dev, gen)),
-            (16, 4, 0, odd_depth(n, d, h, w, dev, gen)),
-            (24, 4, 0, odd_depth(n, d, h, w, dev, gen)),
-            (48, 4, 0, odd_depth(n, d, h, w, dev, gen)),
-            (16, 4, 1, odd_depth(n, d, h, w, dev, gen)),
-            (48, 1, 0, odd_depth(n, d, h, w, dev, gen)),
-            (1040, 4, 0, odd_depth(n, d, h, w, dev, gen)),
-            (264, 4, 0, odd_depth(n, d, h, w, dev, gen)),
-            (1040, 520, 0, odd_depth(n, d, h, w, dev, gen)),
-            (16, 4, 0, wide), (12, 4, 0, wide)):
-        src = shifted(torch.randn(n, h + 3, w - 2, c, device=dev,
-                                  generator=gen), shift)
-        ref = shifted(torch.randn(n, h, w, c, device=dev, generator=gen),
-                      shift)
-        g_out = torch.randn(n, d, h, w, groups, device=dev, generator=gen)
-        want = grads_of(lambda a, b: warp_and_correlate_plain(
-            a, b, sp, rp, depth, groups), src, ref, g_out)
-        got = grads_of(lambda a, b: warp_corr.warp_corr(
-            a, b, sp, rp, depth, groups), src, ref, g_out)
-        torch.cuda.synchronize()
-        tag = f"C{c}G{groups}+{shift}{':wide' if depth is wide else ''}"
-        for k, wnt, what in zip(got, want, ("d_src", "d_ref")):
-            torch.testing.assert_close(k, wnt, **CORR_TOL, msg=lambda m: (
-                f"batched_odd {tag} {what}: {m}"))
-        err = max((k - wnt).abs().max().item() for k, wnt in zip(got, want))
-        odd.append(f"{tag}={err:.1e}")
+    for dt in (torch.float32, torch.bfloat16):
+        tol = CORR_TOL if dt == torch.float32 else BF16_GRAD_TOL
+        for c, groups, shift, depth in (
+                (12, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+                (16, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+                (24, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+                (48, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+                (16, 4, 1, odd_depth(n, d, h, w, dev, gen)),
+                (48, 1, 0, odd_depth(n, d, h, w, dev, gen)),
+                (1040, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+                (264, 4, 0, odd_depth(n, d, h, w, dev, gen)),
+                (1040, 520, 0, odd_depth(n, d, h, w, dev, gen)),
+                (16, 4, 0, wide), (12, 4, 0, wide)):
+            src = shifted(torch.randn(n, h + 3, w - 2, c, device=dev,
+                                      generator=gen).to(dt), shift)
+            ref = shifted(torch.randn(n, h, w, c, device=dev,
+                                      generator=gen).to(dt), shift)
+            g_out = torch.randn(n, d, h, w, groups, device=dev, generator=gen)
+            want = grads_of(lambda a, b: warp_and_correlate_plain(
+                a, b, sp, rp, depth, groups), src, ref, g_out)
+            got = grads_of(lambda a, b: warp_corr.warp_corr(
+                a, b, sp, rp, depth, groups), src, ref, g_out)
+            torch.cuda.synchronize()
+            tag = (f"{'f32' if dt == torch.float32 else 'bf16'}:C{c}G{groups}"
+                   f"+{shift}{':wide' if depth is wide else ''}")
+            for k, wnt, what in zip(got, want, ("d_src", "d_ref")):
+                torch.testing.assert_close(
+                    k.float(), wnt.float(), **tol,
+                    msg=lambda m: f"batched_odd {tag} {what}: {m}")
+            err = max((k.float() - wnt.float()).abs().max().item()
+                      for k, wnt in zip(got, want))
+            odd.append(f"{tag}={err:.1e}")
     v4, scalar = k2_global_atomics(sp, rp, wide, h + 3, w - 2, 16)
     log("train_kernel", shape="batched_odd", N=n, D=d, hw=f"{h}x{w}",
         src_hw=f"{h + 3}x{w - 2}", max_abs_err=",".join(odd),
@@ -342,25 +374,44 @@ def phase_train_kernel(run):
 
 
 def phase_small(run):
-    """The CUDA path against the CPU path on a small input."""
+    """The CUDA path against the CPU path on a small input, f32 and bf16
+    compute. bf16 gate: mean |depth diff| < 0.3 in the [4, 10] depth range,
+    tests/test_torch_bf16.py's whole-model gate (cuDNN's and the CPU's
+    bf16 convolutions round alike but sum in other orders, and random
+    weights amplify that through the soft-argmax and the diffusion)."""
     from diffmvs_tpu_torch.api import DepthRunner
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
-    small = dict(numdepth_initial=8, numdepth=32, scale=(0.0, 0.0, 0.0))
     imgs_s, projs_s, dv_s = synthetic_inputs(1, 3, 64, 96, 32, seed=1)
-    outs = []
-    for device in ("cpu", "cuda"):
-        runner = DepthRunner.from_random("casdiffmvs", device=device,
-                                         seed=0, **small)
-        depth_s, _ = runner(imgs_s, projs_s, dv_s)
-        outs.append(depth_s.cpu())
-    torch.testing.assert_close(outs[1], outs[0], rtol=5e-3, atol=5e-3)
-    log("small", hw="64x96", max_abs_diff_cuda_vs_cpu=(
-        f"{(outs[1] - outs[0]).abs().max().item():.3e}"))
+    for dtype in ("float32", "bfloat16"):
+        small = dict(numdepth_initial=8, numdepth=32, scale=(0.0, 0.0, 0.0),
+                     compute_dtype=dtype)
+        outs = []
+        for device in ("cpu", "cuda"):
+            runner = DepthRunner.from_random("casdiffmvs", device=device,
+                                             seed=0, **small)
+            depth_s, _ = runner(imgs_s, projs_s, dv_s)
+            outs.append(depth_s.cpu())
+        diff = (outs[1] - outs[0]).abs()
+        if dtype == "float32":
+            torch.testing.assert_close(outs[1], outs[0], rtol=5e-3,
+                                       atol=5e-3)
+        else:
+            check(bool(torch.isfinite(outs[1]).all())
+                  and diff.mean().item() < 0.3,
+                  f"bf16 CUDA vs CPU mean |diff| {diff.mean().item()}")
+        log("small", hw="64x96", dtype=dtype,
+            max_abs_diff_cuda_vs_cpu=f"{diff.max().item():.3e}",
+            mean_abs_diff_cuda_vs_cpu=f"{diff.mean().item():.3e}",
+            gate=("rtol=atol=5e-3" if dtype == "float32"
+                  else "mean<0.3"))
 
 
-def phase_main(run):
-    """CasDiffMVS export inference at DTU size, 3 requests."""
+def serve(run, phase, compute_dtype, gate):
+    """CasDiffMVS export inference at DTU size in compute_dtype, 3
+    requests with 28 K1 launches each, then the first again with the plain
+    warp: mean relative depth difference below `gate`. Returns maps/s and
+    the peak memory (GiB)."""
     from diffmvs_tpu_torch.api import DepthRunner
     from diffmvs_tpu_torch.models import stages
     from diffmvs_tpu_torch.ops import warp_corr
@@ -370,7 +421,8 @@ def phase_main(run):
     hh, ww, views = 1152, 1600, 5
     runner = DepthRunner.from_random("casdiffmvs", image_hw=(hh, ww),
                                      views=views, device="cuda", seed=0,
-                                     numdepth_initial=48, numdepth=384)
+                                     numdepth_initial=48, numdepth=384,
+                                     compute_dtype=compute_dtype)
     requests = [synthetic_inputs(1, views, hh, ww, 384, seed=i)
                 for i in range(3)]
     torch.cuda.reset_peak_memory_stats()
@@ -394,14 +446,14 @@ def phase_main(run):
     peak = torch.cuda.max_memory_allocated()
 
     for depth, confs in results:
-        check(depth.shape == (1, hh, ww), f"depth shape {depth.shape}")
+        check(depth.shape == (1, hh, ww) and depth.dtype == torch.float32,
+              f"depth {depth.shape} {depth.dtype}")
         check(len(confs) == 3 and all(cf.shape == (1, hh, ww)
                                       for cf in confs), "3 full-res confs")
         check(bool(torch.isfinite(depth).all()) and all(
             bool(torch.isfinite(cf).all()) for cf in confs), "finite")
     check(launches == 28 * len(requests), f"{launches} kernel launches")
     check(sorted(by_shape.values()) == [12, 36, 36], f"by shape {by_shape}")
-    run["k1_launches"] = by_shape
 
     # the first request once more, the plain warp in place of the kernel
     dispatch = stages.warp_and_correlate
@@ -412,52 +464,88 @@ def phase_main(run):
         stages.warp_and_correlate = dispatch
     rel = ((results[0][0] - depth_plain).abs()
            / depth_plain.abs().clamp_min(1e-12))
-    check(rel.mean().item() < 1e-4, f"plain vs kernel {rel.mean().item()}")
     steady = statistics.mean(req_ms[1:])
-    log("main", requests=len(requests),
+    figures = dict(maps_per_s=1e3 / steady, peak_gib=peak / 2**30)
+    log(phase, dtype=compute_dtype, requests=len(requests),
         request_ms=repr([round(m, 1) for m in req_ms]),
-        maps_per_s=f"{1e3 / steady:.3f}",
-        peak_mem_gib=f"{peak / 2**30:.3f}",
+        maps_per_s=f"{figures['maps_per_s']:.3f}",
+        peak_mem_gib=f"{figures['peak_gib']:.3f}",
         launches=launches, launches_per_request=launches // len(requests),
         plain_vs_kernel_mean_rel=f"{rel.mean().item():.3e}",
-        plain_vs_kernel_max_rel=f"{rel.max().item():.3e}")
+        plain_vs_kernel_max_rel=f"{rel.max().item():.3e}",
+        gate_mean_rel=f"{gate:.0e}")
+    check(rel.mean().item() < gate, f"plain vs kernel {rel.mean().item()}")
+    return by_shape, figures
+
+
+def phase_main(run):
+    """CasDiffMVS export inference at DTU size, f32, 3 requests."""
+    run["k1_launches"], run["main_f32"] = serve(run, "main", "float32", 1e-4)
+
+
+def phase_main_bf16(run):
+    """The same in bf16 compute, beside main's figures. The plain warp
+    computes in f32 what K1 computes, in another summation order; rounding
+    the correlations to bf16 turns the rare last-bit difference into a
+    bf16 ulp, which random weights amplify through the soft-argmax and the
+    diffusion: the mean relative depth difference measured 1.2e-2 on an
+    H100 (against 1.1e-6 in f32), so the gate is 5e-2."""
+    run["k1_launches_bf16"], fig = serve(run, "main_bf16", "bfloat16", 5e-2)
+    f32 = run["main_f32"]
+    log("main_bf16", maps_per_s_bf16=f"{fig['maps_per_s']:.3f}",
+        maps_per_s_f32=f"{f32['maps_per_s']:.3f}",
+        peak_mem_gib_bf16=f"{fig['peak_gib']:.3f}",
+        peak_mem_gib_f32=f"{f32['peak_gib']:.3f}")
 
 
 def phase_train_small(run):
-    """One train step on CUDA against the same step on the CPU, 64x96."""
+    """One train step on CUDA against the same step on the CPU, 64x96:
+    f32, and bf16 with remat (gates: loss rel < 2e-3, gradient cosine >
+    0.99, tests/test_torch_bf16.py's gates against JAX's bf16 step)."""
     from diffmvs_tpu_torch.config import MODEL_PRESETS, TrainConfig
     from diffmvs_tpu_torch.train.state import create_train_state
     from diffmvs_tpu_torch.train.step import train_step
     from diffmvs_tpu_torch.utils.synthetic import (
         synthetic_train_batch, synthetic_train_overrides)
 
-    model_cfg = dataclasses.replace(MODEL_PRESETS["casdiffmvs"],
-                                    numdepth_initial=8, numdepth=32)
-    cfg = TrainConfig(model=model_cfg, batch_size=2)
     batch = synthetic_train_batch(2, 3, 64, 96, 32, seed=1)
-    overrides = synthetic_train_overrides(model_cfg, 2, 64, 96, seed=2)
-    res = []
-    for device in ("cpu", "cuda"):
-        state = create_train_state(cfg, steps_per_epoch=1, device=device,
-                                   seed=0)
-        scalars, images = train_step(state, cfg, batch,
-                                     train_overrides=overrides)
-        res.append((float(scalars["loss"]), flat_grads(state.model).cpu(),
-                    images["depth_est_nomask"].cpu()))
-    (loss_cpu, g_cpu, d_cpu), (loss_cuda, g_cuda, d_cuda) = res
-    rel = abs(loss_cuda - loss_cpu) / abs(loss_cpu)
-    cos = cosine(g_cuda, g_cpu)
-    log("train_small", hw="64x96", B=2, views=3, loss_cpu=f"{loss_cpu:.7f}",
-        loss_cuda=f"{loss_cuda:.7f}", loss_rel=f"{rel:.3e}",
-        depth_max_abs_diff=f"{(d_cuda - d_cpu).abs().max().item():.3e}",
-        grad_cosine=f"{cos:.9f}")
-    check(rel < 1e-4, f"train step loss CUDA vs CPU rel {rel}")
-    check(cos > 0.9999, f"train step gradient cosine CUDA vs CPU {cos}")
+    for dtype, loss_gate, cos_gate in (("float32", 1e-4, 0.9999),
+                                       ("bfloat16", 2e-3, 0.99)):
+        model_cfg = dataclasses.replace(
+            MODEL_PRESETS["casdiffmvs"], numdepth_initial=8, numdepth=32,
+            compute_dtype=dtype, remat=dtype == "bfloat16")
+        cfg = TrainConfig(model=model_cfg, batch_size=2)
+        overrides = synthetic_train_overrides(model_cfg, 2, 64, 96, seed=2)
+        res = []
+        for device in ("cpu", "cuda"):
+            state = create_train_state(cfg, steps_per_epoch=1,
+                                       device=device, seed=0)
+            scalars, images = train_step(state, cfg, batch,
+                                         train_overrides=overrides)
+            res.append((float(scalars["loss"]),
+                        flat_grads(state.model).cpu(),
+                        images["depth_est_nomask"].cpu()))
+        (loss_cpu, g_cpu, d_cpu), (loss_cuda, g_cuda, d_cuda) = res
+        rel = abs(loss_cuda - loss_cpu) / abs(loss_cpu)
+        cos = cosine(g_cuda, g_cpu)
+        log("train_small", hw="64x96", B=2, views=3, dtype=dtype,
+            remat=model_cfg.remat, loss_cpu=f"{loss_cpu:.7f}",
+            loss_cuda=f"{loss_cuda:.7f}", loss_rel=f"{rel:.3e}",
+            depth_max_abs_diff=f"{(d_cuda - d_cpu).abs().max().item():.3e}",
+            grad_cosine=f"{cos:.9f}",
+            gates=f"loss_rel<{loss_gate:.0e},cosine>{cos_gate}")
+        check(rel < loss_gate, f"train step {dtype} loss CUDA vs CPU rel "
+              f"{rel}")
+        check(cos > cos_gate, f"train step {dtype} gradient cosine CUDA vs "
+              f"CPU {cos}")
 
 
-def phase_train(run):
-    """The training cell through run_training, then kernel vs plain."""
-    from diffmvs_tpu_torch.config import MODEL_PRESETS, TrainConfig
+def train_cell(run, phase, model_cfg, gates):
+    """The training cell through run_training (5 steps), then one step's
+    gradients with the kernels against the plain warp. gates: (loss rel,
+    mean depth rel, gradient cosine). Returns (K2 launches by shape,
+    {samples_per_s, peak_gib}, the state, cfg, batch, overrides)."""
+    from diffmvs_tpu_torch.config import TrainConfig
     from diffmvs_tpu_torch.models import stages
     from diffmvs_tpu_torch.ops import warp_corr
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
@@ -469,16 +557,24 @@ def phase_train(run):
         synthetic_train_batch, synthetic_train_overrides)
 
     b, views, hh, ww, steps = 4, 5, 512, 640, 5
-    model_cfg = MODEL_PRESETS["casdiffmvs"]
-    check(model_cfg.numdepth_initial == 48 and model_cfg.numdepth == 384
-          and model_cfg.compute_dtype == "float32", "the preset's widths")
+    check(model_cfg.numdepth_initial == 48 and model_cfg.numdepth == 384,
+          "the preset's widths")
+    # K1 per step: each source view's sweep and refinement iterations, and
+    # the iterations once more in the backward under remat; K2 per step:
+    # the backward of each forward warp
+    iters = sum(model_cfg.stage_iters[1:])
+    k1_step = (views - 1) * (1 + (2 if model_cfg.remat else 1) * iters)
+    k2_step = (views - 1) * (1 + iters)
+    k1_eval = (views - 1) * (1 + iters)
     cfg = TrainConfig(model=model_cfg, batch_size=b, epochs=1,
                       summary_freq=1, seed=0)
     state = create_train_state(cfg, steps_per_epoch=steps, device="cuda",
                                seed=0)
+    check({p.dtype for p in state.model.parameters()} == {torch.float32},
+          "float32 parameters")
     batches = [synthetic_train_batch(b, views, hh, ww, 384, seed=i)
                for i in range(steps)]
-    logdir = REPO / "build" / "chip_smoke_train"
+    logdir = REPO / "build" / f"chip_smoke_{phase}"
     shutil.rmtree(logdir, ignore_errors=True)
 
     marks = []
@@ -496,29 +592,32 @@ def phase_train(run):
     run_training(state, cfg, batches, batches[:1], str(logdir),
                  on_step=on_step)
     torch.cuda.synchronize()
-    run["k2_launches"] = dict(warp_corr.bwd_launches_by_shape)
+    k2_launches = dict(warp_corr.bwd_launches_by_shape)
     k1_total, k2_total = warp_corr.launches, warp_corr.bwd_launches
     check(warp_corr.pre_launches == warp_corr.operand_launches
           == warp_corr.projection_launches == 0,
           "no K3, operand or projection launches in training")
     peak = torch.cuda.max_memory_allocated()
+    check(all(s["exp_avg"].dtype == torch.float32
+              for s in state.optimizer.state.values()),
+          "float32 optimizer state")
 
     step_ms = []
     for prev, cur in zip(marks, marks[1:]):
-        check(cur[1] - prev[1] == 28, f"{cur[1] - prev[1]} K1 launches in "
-              f"a step")
-        check(cur[2] - prev[2] == 28, f"{cur[2] - prev[2]} K2 launches in "
-              f"a step")
+        check(cur[1] - prev[1] == k1_step, f"{cur[1] - prev[1]} K1 "
+              f"launches in a step, not {k1_step}")
+        check(cur[2] - prev[2] == k2_step, f"{cur[2] - prev[2]} K2 "
+              f"launches in a step, not {k2_step}")
         check(all(math.isfinite(v) for v in cur[3:]),
               f"loss / gradient norm {cur[3:]}")
         step_ms.append((cur[0] - prev[0]) * 1e3)
     check(len(step_ms) == steps, f"{len(step_ms)} steps")
-    check(k2_total == 28 * steps, f"{k2_total} K2 launches")
-    check(k1_total == 28 * (steps + 1), f"{k1_total} K1 launches (with "
-          f"one validation batch)")
-    check(sorted(run["k2_launches"].values()) == [4 * steps, 12 * steps,
-                                                  12 * steps],
-          f"K2 by shape {run['k2_launches']}")
+    check(k2_total == k2_step * steps, f"{k2_total} K2 launches")
+    check(k1_total == k1_step * steps + k1_eval, f"{k1_total} K1 launches "
+          f"(with one validation batch)")
+    check(sorted(k2_launches.values()) == [4 * steps, 12 * steps,
+                                           12 * steps],
+          f"K2 by shape {k2_launches}")
     check((logdir / "model_000000.ckpt").exists(), "checkpoint written")
 
     # one step's gradients, kernels against the plain warp (same weights,
@@ -543,7 +642,7 @@ def phase_train(run):
         loss_p, g_p, depth_p, counts_p = loss_and_grads()
     finally:
         stages.warp_and_correlate = dispatch
-    check(counts_k == (28, 28) and counts_p == (0, 0),
+    check(counts_k == (k1_step, k2_step) and counts_p == (0, 0),
           f"launches with the kernels {counts_k}, with the plain warp "
           f"{counts_p}")
     rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -551,18 +650,80 @@ def phase_train(run):
     depth_rel = ((depth_k - depth_p).abs()
                  / depth_p.abs().clamp_min(1e-12)).mean().item()
     steady = statistics.mean(step_ms[1:])
-    log("train", B=b, views=views, hw=f"{hh}x{ww}", steps=steps,
+    figures = dict(samples_per_s=b * 1e3 / steady, peak_gib=peak / 2**30)
+    log(phase, dtype=model_cfg.compute_dtype, remat=model_cfg.remat, B=b,
+        views=views, hw=f"{hh}x{ww}", steps=steps,
         step_ms=repr([round(m, 1) for m in step_ms]),
-        samples_per_s=f"{b * 1e3 / steady:.3f}",
-        peak_mem_gib=f"{peak / 2**30:.3f}",
+        samples_per_s=f"{figures['samples_per_s']:.3f}",
+        peak_mem_gib=f"{figures['peak_gib']:.3f}",
         losses=repr([round(m[3], 4) for m in marks[1:]]),
-        k1_per_step=28, k2_per_step=28,
+        k1_per_step=k1_step, k2_per_step=k2_step,
         plain_vs_kernel_loss_rel=f"{rel:.3e}",
         plain_vs_kernel_depth_mean_rel=f"{depth_rel:.3e}",
-        plain_vs_kernel_grad_cosine=f"{cos:.8f}")
-    check(rel < 1e-5, f"train loss kernel vs plain rel {rel}")
-    check(depth_rel < 1e-4, f"train depth kernel vs plain rel {depth_rel}")
-    check(cos > 0.9999, f"train gradients kernel vs plain cosine {cos}")
+        plain_vs_kernel_grad_cosine=f"{cos:.8f}",
+        gates=f"loss_rel<{gates[0]:.0e},depth_rel<{gates[1]:.0e},"
+              f"cosine>{gates[2]}")
+    check(rel < gates[0], f"train loss kernel vs plain rel {rel}")
+    check(depth_rel < gates[1], f"train depth kernel vs plain rel "
+          f"{depth_rel}")
+    check(cos > gates[2], f"train gradients kernel vs plain cosine {cos}")
+    return (k2_launches, figures,
+            (state, cfg, batch, overrides, g_k, loss_and_grads))
+
+
+def phase_train(run):
+    """The f32 training cell through run_training, then kernel vs plain."""
+    from diffmvs_tpu_torch.config import MODEL_PRESETS
+
+    model_cfg = MODEL_PRESETS["casdiffmvs"]
+    check(model_cfg.compute_dtype == "float32" and not model_cfg.remat,
+          "the preset's f32 policy")
+    run["k2_launches"], run["train_f32"], _ = train_cell(
+        run, "train", model_cfg, (1e-5, 1e-4, 0.9999))
+
+
+def phase_train_bf16(run):
+    """The bf16 + remat training cell (bench.py's training configuration),
+    beside train's figures; then the same step with remat off: the same
+    gradients, and the peak memory of one step each way."""
+    from diffmvs_tpu_torch.config import MODEL_PRESETS
+
+    model_cfg = dataclasses.replace(MODEL_PRESETS["casdiffmvs"],
+                                    compute_dtype="bfloat16", remat=True)
+    # gates: loss rel < 1e-4, mean depth rel < 1e-2, gradient cosine >
+    # 0.9995 (measured on an H100: 1.4e-5, 1.3e-3, 0.99998; the plain warp
+    # and K1 differ in f32 summation order, which bf16 rounding of the
+    # correlations and random weights amplify as in main_bf16)
+    k2, fig, (state, cfg, batch, overrides, g_on, loss_and_grads) = \
+        train_cell(run, "train_bf16", model_cfg, (1e-4, 1e-2, 0.9995))
+    run["k2_launches_bf16"] = k2
+
+    blocks = [m for m in state.model.modules() if hasattr(m, "remat")]
+    check(len(blocks) == 2 and all(m.remat for m in blocks),
+          "remat on in both refinement stages")
+    peaks = {}
+    for remat in (True, False):
+        for m in blocks:
+            m.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, grads, _, counts = loss_and_grads()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+        if not remat:
+            g_off, counts_off = grads, counts
+    for m in blocks:
+        m.remat = True
+    cos = cosine(g_on, g_off)
+    check(counts_off == (28, 28), f"remat off: {counts_off} launches")
+    check(cos > 0.9999, f"remat on vs off gradient cosine {cos}")
+    f32 = run["train_f32"]
+    log("train_bf16", remat_on_vs_off_grad_cosine=f"{cos:.8f}",
+        step_peak_gib_remat_on=f"{peaks[True]:.3f}",
+        step_peak_gib_remat_off=f"{peaks[False]:.3f}",
+        samples_per_s_bf16=f"{fig['samples_per_s']:.3f}",
+        samples_per_s_f32=f"{f32['samples_per_s']:.3f}",
+        peak_mem_gib_bf16=f"{fig['peak_gib']:.3f}",
+        peak_mem_gib_f32=f"{f32['peak_gib']:.3f}")
 
 
 def operand_check(kops, src, sp, rp, depth):
@@ -1098,24 +1259,30 @@ def main():
 
     dev = torch.device("cuda")
     run = {"dev": dev, "gen": torch.Generator(device=dev).manual_seed(0),
-           "k1_rows": {}, "k2_rows": {}, "k3_rows": [], "operand_rows": [],
-           "k1_launches": {}, "k2_launches": {}}
+           "k1_rows": {}, "k2_rows": {}, "k1_rows_bf16": {},
+           "k2_rows_bf16": {}, "k3_rows": [], "operand_rows": []}
     for phase in (phase_kernel, phase_train_kernel, phase_small, phase_main,
-                  phase_train_small, phase_train, phase_k3_kernel,
-                  phase_export):
+                  phase_main_bf16, phase_train_small, phase_train,
+                  phase_train_bf16, phase_k3_kernel, phase_export):
         phase(run)
 
     kernels = []
     for rows, counts, src, replaces, tag in (
             (run["k1_rows"], run["k1_launches"], "warp_corr.cu",
              "warp_corr.py:210", "warp_corr"),
+            (run["k1_rows_bf16"], run["k1_launches_bf16"], "warp_corr.cu",
+             "warp_corr.py:210", "warp_corr"),
             (run["k2_rows"], run["k2_launches"], "warp_corr_bwd.cu",
-             "warp_corr_bwd.py:61", "warp_corr_bwd")):
+             "warp_corr_bwd.py:61", "warp_corr_bwd"),
+            (run["k2_rows_bf16"], run["k2_launches_bf16"],
+             "warp_corr_bwd.cu", "warp_corr_bwd.py:61", "warp_corr_bwd")):
+        bf16 = rows is run["k1_rows_bf16"] or rows is run["k2_rows_bf16"]
         for key, (name, r) in rows.items():
             if key not in counts:     # measured, not on a path (DiffMVS)
                 continue
             kernels.append({
-                "name": f"{tag}:{name}", "route": "cuda",
+                "name": f"{tag}:{name}{':bf16' if bf16 else ''}",
+                "route": "cuda",
                 "source": f"diffmvs_tpu_torch/ops/csrc/{src}",
                 "replaces": f"diffmvs_tpu/ops/pallas/{replaces}",
                 "launches": counts[key], "max_abs_err": r["max_abs_err"],
@@ -1160,7 +1327,7 @@ def main():
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None})
-    check(len(kernels) == 16, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 22, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

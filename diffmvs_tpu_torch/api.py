@@ -37,7 +37,9 @@ SCHEDULE_BUFFERS = (
 
 def set_f32_precision():
     """Full float32 matmuls and convolutions on CUDA (no TF32), matching
-    the JAX package's `highest` precision."""
+    the JAX package's `highest` precision. Set for either compute dtype:
+    under bfloat16 the float32 convs that remain (PixelViewWeight's) would
+    otherwise run in TF32, which cuDNN allows by default."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -81,8 +83,7 @@ class DepthRunner:
     def __init__(self, cfg: ModelConfig, state_dict: Optional[Dict] = None,
                  device=None, seed: int = 0):
         self.device = resolve_device(device)
-        if cfg.compute_dtype == "float32":
-            set_f32_precision()
+        set_f32_precision()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = CasDiffMVS(cfg)

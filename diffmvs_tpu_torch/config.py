@@ -2,11 +2,13 @@
 (PyTorch port).
 
 Counterpart of diffmvs_tpu/config.py without the TPU layout flags (warp
-kernel selection, s2d layouts, unrolling, remat): the port computes each
+kernel selection, s2d layouts, unrolling): the port computes each
 operation once, in NCHW, and the plane-sweep warp always goes through
-ops.correlation.warp_and_correlate. TrainConfig leaves out the device
-mesh (dp/sp): data-parallel training is not ported yet. EvalConfig and the
-per-scene fusion tables serve cli/test.py.
+ops.correlation.warp_and_correlate. The compute dtype and remat are the
+JAX package's: bfloat16 conv stacks over float32 parameters, and each
+refinement iteration recomputed in the backward pass. TrainConfig leaves
+out the device mesh (dp/sp): data-parallel training is not ported yet.
+EvalConfig and the per-scene fusion tables serve cli/test.py.
 
 Per-stage hyperparameters are 3-tuples indexed by stage (stage 0 = 1/8-res
 initialization, stage 1 = 1/4-res refinement, stage 2 = 1/2-res
@@ -18,8 +20,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import torch
+
 Triple = Tuple[float, float, float]
 ITriple = Tuple[int, int, int]
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +60,14 @@ class ModelConfig:
     # feature extractor dims
     base_channels: int = 8
 
-    # compute dtype for the conv stacks; only "float32" runs in this
-    # version of the port (geometry, soft-argmax and the diffusion state
-    # are float32 whatever this says)
+    # compute dtype for the conv stacks ("float32" or "bfloat16"); the
+    # parameters, geometry, soft-argmax and the diffusion state stay
+    # float32 whatever this says
     compute_dtype: str = "float32"
+
+    # recompute each refinement iteration in the backward pass instead of
+    # keeping its activations (torch.utils.checkpoint per iteration)
+    remat: bool = False
 
     @property
     def is_cascade(self) -> bool:
@@ -84,7 +94,15 @@ class ModelConfig:
         """UNet depth multiplier schedule per stage."""
         return ((1,), (1, 2), (1, 2, 4))
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The conv stacks' compute dtype."""
+        return COMPUTE_DTYPES[self.compute_dtype]
+
     def validate(self) -> "ModelConfig":
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r} is not "
+                             f"one of {sorted(COMPUTE_DTYPES)}")
         if self.stage_iters[0] < 1 or self.stage_iters[1] < 1:
             raise ValueError("stages 0 and 1 need at least one iteration")
         for s in (1, 2):

@@ -21,6 +21,11 @@ BatchNorm follows the module's mode: model.train() for training.
 Inside, maps are NCHW; the images enter as a channels-last view, so the
 conv stacks run channels-last and the stage features reach the warp
 kernel as contiguous NHWC maps without a copy (for B = 1).
+
+Compute dtype (cfg.compute_dtype, the JAX package's policy): the conv
+stacks compute in cfg.dtype over float32 parameters; the uint8 / 255 input
+normalization, the geometry, the soft-argmax, the convex upsampling (the
+mask logits go to float32 first) and the diffusion state stay float32.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from diffmvs_tpu_torch.models.schedule import DiffusionSchedule
 from diffmvs_tpu_torch.models.stages import InitialStage
 from diffmvs_tpu_torch.nn.context import ContextNet
 from diffmvs_tpu_torch.nn.feature import FeatureNet
-from diffmvs_tpu_torch.nn.layers import ConvBnAct
+from diffmvs_tpu_torch.nn.layers import Conv2d, ConvBnAct
 from diffmvs_tpu_torch.ops.resize import upsample_nearest
 
 
@@ -47,10 +52,13 @@ class HiddenInit(nn.Sequential):
     """Strided convs bringing the context hidden state to 1/8 resolution
     (num_down stride-2 ConvBnActs, then a bias-free 3x3)."""
 
-    def __init__(self, hidden_dim: int, num_down: int = 1):
-        layers = [ConvBnAct(hidden_dim if i == 0 else 32, 32, 3, 2, 1)
+    def __init__(self, hidden_dim: int, num_down: int = 1,
+                 dtype=torch.float32):
+        layers = [ConvBnAct(hidden_dim if i == 0 else 32, 32, 3, 2, 1,
+                            dtype=dtype)
                   for i in range(num_down)]
-        layers.append(nn.Conv2d(32, hidden_dim, 3, padding=1, bias=False))
+        layers.append(Conv2d(32, hidden_dim, 3, padding=1, bias=False,
+                             dtype=dtype))
         super().__init__(*layers)
 
 
@@ -65,19 +73,19 @@ class CasDiffMVS(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         cfg.validate()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "the PyTorch port runs float32 compute only so far")
         self.cfg = cfg
-        self.feature = FeatureNet(cfg.base_channels, cfg.feat_dim_stage)
-        self.context = ContextNet(cfg.ctx_out_dim)
+        dt = cfg.dtype
+        self.feature = FeatureNet(cfg.base_channels, cfg.feat_dim_stage, dt)
+        self.context = ContextNet(cfg.ctx_out_dim, dt)
         self.depthnet = InitialStage(cfg.ctx_out_dim[0],
-                                     cfg.cost_dim_stage[0], up_ratio=2)
+                                     cfg.cost_dim_stage[0], up_ratio=2,
+                                     dtype=dt)
         hidden_inits = []
         for s in (1, 2):
             if cfg.stage_iters[s] == 0:
                 continue
-            hidden_inits.append(HiddenInit(cfg.hidden_dim[s], num_down=s))
+            hidden_inits.append(HiddenInit(cfg.hidden_dim[s], num_down=s,
+                                           dtype=dt))
             setattr(self, f"update_block_depth{s + 1}", RefinementStage(
                 unet_dim=cfg.unet_dim[s],
                 dim_mults=cfg.unet_dim_mults[s],
@@ -95,7 +103,9 @@ class CasDiffMVS(nn.Module):
                     eta=cfg.ddim_eta[s],
                     scale=cfg.scale[s]),
                 min_radius=cfg.min_radius,
-                max_radius=cfg.max_radius))
+                max_radius=cfg.max_radius,
+                remat=cfg.remat,
+                dtype=dt))
         self.hidden_init = nn.ModuleList(hidden_inits)
 
     def forward(self, imgs, proj_matrices, depth_values, depth_gt=None,

@@ -10,7 +10,14 @@ or the stage's noise scale is 0), and a GRU-UNet denoiser iteratively
 predicts delta + confidence from local cost volumes. The hidden state
 resets for every DDIM time pair. The diffusion state (delta, inverse
 depth, confidence) stays float32 and is detached at the start of every
-iteration, as in the reference (a no-op at inference).
+iteration, as in the reference (a no-op at inference), whatever the
+conv stacks' compute dtype (`dtype`); the GRU hidden state keeps the dtype
+of HiddenInit's output.
+
+remat=True recomputes each iteration in the backward pass (the JAX
+package's nn.remat(RefineIteration)): only an iteration's inputs are kept
+for the backward, so the stage's activation memory no longer grows with
+its iterations.
 
 RefinementStage subclasses RefineIteration so that the encoder, the UNet
 and the mask head sit directly under the stage, as in the reference's
@@ -23,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from diffmvs_tpu_torch.models.schedule import DiffusionSchedule
 from diffmvs_tpu_torch.models.stages import UpsampleMaskHead, local_cost_volume
@@ -42,7 +50,7 @@ class RefineIteration(nn.Module):
     def __init__(self, unet_dim: int, dim_mults: Tuple[int, ...],
                  hidden_dim: int, context_dim: int, cost_num: int,
                  group_dim: int, depth_interval: float, min_radius: float,
-                 max_radius: float):
+                 max_radius: float, dtype=torch.float32):
         super().__init__()
         self.cost_num = cost_num
         self.group_dim = group_dim
@@ -51,15 +59,16 @@ class RefineIteration(nn.Module):
         self.max_radius = max_radius
         self.encoder = ConditionEncoder(
             cost_dim=group_dim * cost_num, num_sample=cost_num,
-            hidden_dim=context_dim, out_chs=context_dim)
+            hidden_dim=context_dim, out_chs=context_dim, dtype=dtype)
         self.unet = DiffusionUNet(
             dim=unet_dim, hidden_dim=hidden_dim, input_dim=2 * context_dim,
-            dim_mults=dim_mults)
+            dim_mults=dim_mults, dtype=dtype)
 
     def iterate(self, hidden, inv_new, delta, confidence, has_conf, context,
                 t, inv_depth, features, proj_pairs, depth_min, depth_max,
                 view_weights):
-        """Returns the next (hidden, inv_new, delta, confidence)."""
+        """Returns the next (hidden, inv_new, delta, confidence); the last
+        three float32 whatever the compute dtype."""
         delta = delta.detach()
         confidence = confidence.detach()
         inv_new = inv_new.detach()
@@ -85,13 +94,27 @@ class RefinementStage(RefineIteration):
                  hidden_dim: int, context_dim: int, num_sample: int,
                  group_dim: int, depth_interval: float, iters: int,
                  up_ratio: int, schedule: DiffusionSchedule,
-                 min_radius: float = 0.2, max_radius: float = 2.0):
+                 min_radius: float = 0.2, max_radius: float = 2.0,
+                 remat: bool = False, dtype=torch.float32):
         super().__init__(unet_dim, dim_mults, hidden_dim, context_dim,
                          num_sample, group_dim, depth_interval, min_radius,
-                         max_radius)
+                         max_radius, dtype)
         self.iters = iters
         self.schedule = schedule
-        self.mask = UpsampleMaskHead(context_dim, up_ratio)
+        self.remat = remat
+        self.mask = UpsampleMaskHead(context_dim, up_ratio, dtype)
+
+    def step(self, *args):
+        """iterate(*args), under remat recomputed in the backward pass.
+
+        Recomputing is exact: an iteration draws no random numbers (the
+        timesteps and noise are drawn before the loop) and holds no
+        BatchNorm (its norms are GroupNorms, with no running statistics),
+        so the second run neither changes the noise nor updates any
+        statistic twice."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(self.iterate, *args, use_reentrant=False)
+        return self.iterate(*args)
 
     def forward(self, inv_depth, hidden, context, features, proj_pairs,
                 depth_min, depth_max, view_weights,
@@ -152,7 +175,7 @@ class RefinementStage(RefineIteration):
         cur_hidden = hidden
         inv_seq, conf_seq = [], []
         for i in range(self.iters):
-            cur_hidden, inv_new, delta, confidence = self.iterate(
+            cur_hidden, inv_new, delta, confidence = self.step(
                 cur_hidden, inv_new, delta, confidence, i > 0, context, t,
                 inv_depth, features, proj_pairs, depth_min, depth_max,
                 view_weights)
@@ -183,7 +206,7 @@ class RefinementStage(RefineIteration):
             confidence = torch.zeros_like(inv_depth)
             inv_seq, conf_seq = [], []
             for i in range(self.iters):
-                cur_hidden, inv_new, delta, confidence = self.iterate(
+                cur_hidden, inv_new, delta, confidence = self.step(
                     cur_hidden, inv_new, delta, confidence, i > 0, context,
                     t, inv_depth, features, proj_pairs, depth_min,
                     depth_max, view_weights)

@@ -3,6 +3,12 @@
 Counterpart of diffmvs_tpu/models/stages.py. Feature maps for the warp
 arrive per view as NHWC [B, H, W, C] contiguous tensors (the layout the
 kernel reads); everything else is NCHW / NCDHW.
+
+Dtypes, as in the JAX package: each correlation volume comes from the warp
+in float32 and is rounded to the features' dtype (diffmvs_tpu/models/
+stages.py:99,176), the view weights are float32 (PixelViewWeight), so the
+view-weighted aggregate promotes to float32; CostRegNet and the mask head
+compute in the model's dtype, and the soft-argmax runs in float32.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from diffmvs_tpu_torch.geometry.transforms import (
     disp_to_depth,
 )
 from diffmvs_tpu_torch.nn.costreg import CostRegNet, PixelViewWeight
+from diffmvs_tpu_torch.nn.layers import Conv2d
 from diffmvs_tpu_torch.ops.correlation import (
     aggregate_views,
     warp_and_correlate,
@@ -25,9 +32,10 @@ from diffmvs_tpu_torch.ops.softargmax import depth_regression_with_confidence
 class UpsampleMaskHead(nn.Sequential):
     """conv3x3 -> ReLU -> conv1x1(9*r*r) mask head, scaled by 0.25."""
 
-    def __init__(self, in_ch: int, ratio: int):
-        super().__init__(nn.Conv2d(in_ch, 64, 3, padding=1), nn.ReLU(),
-                         nn.Conv2d(64, ratio * ratio * 9, 1))
+    def __init__(self, in_ch: int, ratio: int, dtype=torch.float32):
+        super().__init__(Conv2d(in_ch, 64, 3, padding=1, dtype=dtype),
+                         nn.ReLU(),
+                         Conv2d(64, ratio * ratio * 9, 1, dtype=dtype))
 
     def forward(self, context):
         return 0.25 * super().forward(context)
@@ -41,12 +49,14 @@ class InitialStage(nn.Module):
     windowed photometric confidence, plus the convex-upsample mask.
     """
 
-    def __init__(self, context_dim: int, group_dim: int, up_ratio: int = 2):
+    def __init__(self, context_dim: int, group_dim: int, up_ratio: int = 2,
+                 dtype=torch.float32):
         super().__init__()
         self.group_dim = group_dim
         self.pixel_view_weight = PixelViewWeight(group_dim)
-        self.cost_regularization = CostRegNet(group_dim, base_channels=8)
-        self.mask = UpsampleMaskHead(context_dim, up_ratio)
+        self.cost_regularization = CostRegNet(group_dim, base_channels=8,
+                                              dtype=dtype)
+        self.mask = UpsampleMaskHead(context_dim, up_ratio, dtype)
 
     def forward(self, features, context, proj_pairs, depth_values,
                 scale_inv_depth):
@@ -66,7 +76,7 @@ class InitialStage(nn.Module):
         for i, src_fea in enumerate(features[1:]):
             cor = warp_and_correlate(
                 src_fea, ref_fea, proj_pairs[:, i + 1], proj_pairs[:, 0],
-                depth_values, self.group_dim)              # [B,D,H,W,G]
+                depth_values, self.group_dim).to(ref_fea.dtype)  # [B,D,H,W,G]
             weight_list.append(self.pixel_view_weight(
                 cor.permute(0, 4, 1, 2, 3)))               # [B,H,W]
             cor_list.append(cor)
@@ -109,7 +119,8 @@ def local_cost_volume(inv_depth, features, proj_pairs, depth_interval,
     ref_fea = features[0]
     cor_list = [
         warp_and_correlate(src_fea, ref_fea, proj_pairs[:, i + 1],
-                           proj_pairs[:, 0], depth_hyp, group_dim)
+                           proj_pairs[:, 0], depth_hyp, group_dim
+                           ).to(ref_fea.dtype)
         for i, src_fea in enumerate(features[1:])]
     agg = aggregate_views(torch.stack(cor_list), view_weights)  # [B,D,H,W,G]
     _, d, h, w, g = agg.shape

@@ -3,22 +3,25 @@
 Counterpart of diffmvs_tpu/nn/feature.py:FeatureNet (its plain branch).
 4-level pyramid: strided 5x5 convs down (8->16->32->64 ch), nearest
 upsample + 1x1 lateral merge up. Heads emit stage1 (1/8 res), stage2 (1/4
-res) and, for the cascade variant only, stage3 (1/2 res).
+res) and, for the cascade variant only, stage3 (1/2 res). Every conv
+computes in `dtype`, so the features come out in it.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffmvs_tpu_torch.nn.layers import ConvBnAct
+from diffmvs_tpu_torch.nn.layers import Conv2d, ConvBnAct
 
 
 class FeatureNet(nn.Module):
     def __init__(self, base_channels: int = 8,
-                 out_channels: Tuple[int, int, int] = (48, 32, 16)):
+                 out_channels: Tuple[int, int, int] = (48, 32, 16),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         bc = base_channels
         specs = {0: [(3, bc, 3, 1, 1), (bc, bc, 3, 1, 1)],
@@ -30,16 +33,18 @@ class FeatureNet(nn.Module):
                      (8 * bc, 8 * bc, 3, 1, 1)]}
         for lvl, layers in specs.items():
             setattr(self, f"conv{lvl}", nn.Sequential(
-                *[ConvBnAct(ci, co, k, s, p) for ci, co, k, s, p in layers]))
-        self.out1 = nn.Conv2d(8 * bc, out_channels[0], 1, bias=False)
-        self.inner1 = nn.Conv2d(4 * bc, 8 * bc, 1, bias=True)
-        self.out2 = nn.Conv2d(8 * bc, out_channels[1], 3, padding=1,
-                              bias=False)
+                *[ConvBnAct(ci, co, k, s, p, dtype=dtype)
+                  for ci, co, k, s, p in layers]))
+        self.out1 = Conv2d(8 * bc, out_channels[0], 1, bias=False,
+                           dtype=dtype)
+        self.inner1 = Conv2d(4 * bc, 8 * bc, 1, bias=True, dtype=dtype)
+        self.out2 = Conv2d(8 * bc, out_channels[1], 3, padding=1,
+                           bias=False, dtype=dtype)
         self.cascade = out_channels[2] > 0
         if self.cascade:
-            self.inner2 = nn.Conv2d(2 * bc, 8 * bc, 1, bias=True)
-            self.out3 = nn.Conv2d(8 * bc, out_channels[2], 3, padding=1,
-                                  bias=False)
+            self.inner2 = Conv2d(2 * bc, 8 * bc, 1, bias=True, dtype=dtype)
+            self.out3 = Conv2d(8 * bc, out_channels[2], 3, padding=1,
+                               bias=False, dtype=dtype)
 
     def forward(self, x):
         """x: [N, 3, H, W]. Returns {"stage1".."stage3": [N, C, h, w]}."""

@@ -5,6 +5,14 @@ reference's state_dict keys (`.conv` / `.bn` inside each wrapper, the GRU's
 convz1..convq2), so a released checkpoint loads with strict=True. Weights
 use torch's default initialization, which the JAX package reproduces.
 BatchNorm: momentum 0.1, eps 1e-5.
+
+Compute dtype: as the JAX modules' `dtype=`, each conv and linear layer
+holds one (`dtype`, float32 by default) and computes in it: the input, the
+weight and the bias are cast to it, so the parameters stay float32 and
+their gradients come back float32 through the casts. BatchNorm takes the
+conv's output as it is: torch reduces a bfloat16 input's statistics and
+normalizes it in float32 against the float32 affine and running
+statistics, and rounds once to bfloat16 (flax's force_float32_reductions).
 """
 
 from __future__ import annotations
@@ -14,14 +22,70 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in `dtype` over float32 parameters."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d computing in `dtype` over float32 parameters."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """nn.ConvTranspose3d (no output_size argument) computing in `dtype`
+    over float32 parameters."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv_transpose3d(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt), self.stride,
+            self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `dtype` over float32 parameters."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class ConvBnAct(nn.Module):
     """Conv2d (no bias) + BN (+ ReLU)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=0,
-                 relu=True):
+                 relu=True, dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                              padding=padding, bias=False)
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                           padding=padding, bias=False, dtype=dtype)
         self.bn = nn.BatchNorm2d(out_ch)
         self.relu = relu
 
@@ -33,10 +97,11 @@ class ConvBnAct(nn.Module):
 class Conv3dBnAct(nn.Module):
     """Conv3d (no bias) + BN + ReLU over NCDHW."""
 
-    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=0):
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=0,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv3d(in_ch, out_ch, kernel_size, stride=stride,
-                              padding=padding, bias=False)
+        self.conv = Conv3d(in_ch, out_ch, kernel_size, stride=stride,
+                           padding=padding, bias=False, dtype=dtype)
         self.bn = nn.BatchNorm3d(out_ch)
 
     def forward(self, x):
@@ -47,10 +112,11 @@ class Deconv3dBnAct(nn.Module):
     """ConvTranspose3d(k3, stride 2, pad 1, output_padding 1) + BN + ReLU:
     doubles each spatial dim."""
 
-    def __init__(self, in_ch, out_ch):
+    def __init__(self, in_ch, out_ch, dtype=torch.float32):
         super().__init__()
-        self.conv = nn.ConvTranspose3d(in_ch, out_ch, 3, stride=2, padding=1,
-                                       output_padding=1, bias=False)
+        self.conv = ConvTranspose3d(in_ch, out_ch, 3, stride=2, padding=1,
+                                    output_padding=1, bias=False,
+                                    dtype=dtype)
         self.bn = nn.BatchNorm3d(out_ch)
 
     def forward(self, x):
@@ -60,26 +126,29 @@ class Deconv3dBnAct(nn.Module):
 class ConvBnReLU(ConvBnAct):
     """Conv2d+BN+ReLU with a bias-free conv."""
 
-    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=1):
-        super().__init__(in_ch, out_ch, kernel_size, stride, padding)
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=1,
+                 dtype=torch.float32):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding,
+                         dtype=dtype)
 
 
 class ConvBn(ConvBnAct):
     """Conv2d+BN, no activation."""
 
-    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=1):
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=1,
+                 dtype=torch.float32):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding,
-                         relu=False)
+                         relu=False, dtype=dtype)
 
 
 class ResidualBlock(nn.Module):
     """Two 3x3 convs with additive skip (strided skip through downsample)."""
 
-    def __init__(self, in_ch, out_ch, stride=1):
+    def __init__(self, in_ch, out_ch, stride=1, dtype=torch.float32):
         super().__init__()
-        self.conv1 = ConvBnReLU(in_ch, out_ch, 3, stride, 1)
-        self.conv2 = ConvBn(out_ch, out_ch, 3, 1, 1)
-        self.downsample = (ConvBn(in_ch, out_ch, 3, stride, 1)
+        self.conv1 = ConvBnReLU(in_ch, out_ch, 3, stride, 1, dtype=dtype)
+        self.conv2 = ConvBn(out_ch, out_ch, 3, 1, 1, dtype=dtype)
+        self.downsample = (ConvBn(in_ch, out_ch, 3, stride, 1, dtype=dtype)
                            if stride != 1 else None)
 
     def forward(self, x):
@@ -91,15 +160,16 @@ class ResidualBlock(nn.Module):
 
 class SepConvGRU(nn.Module):
     """RAFT separable conv GRU: horizontal (1x5) gated update, then
-    vertical (5x1)."""
+    vertical (5x1). The gates compute in `dtype`; the hidden state keeps
+    the dtype that type promotion gives it, as in the JAX module."""
 
-    def __init__(self, hidden_dim, input_dim):
+    def __init__(self, hidden_dim, input_dim, dtype=torch.float32):
         super().__init__()
         for tag, k, p in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
             for gate in "zrq":
                 setattr(self, f"conv{gate}{tag}",
-                        nn.Conv2d(hidden_dim + input_dim, hidden_dim, k,
-                                  padding=p))
+                        Conv2d(hidden_dim + input_dim, hidden_dim, k,
+                               padding=p, dtype=dtype))
 
     def forward(self, h, x):
         for tag in ("1", "2"):

@@ -9,9 +9,16 @@ delta (1 ch) and sigmoid confidence. Time conditioning is FiLM
 
 Module attributes follow the reference's state_dict keys (init_conv,
 time_mlp.{1,3}, downs.{i}.{0,1}, gru, mid, ups.{i}.{0,1},
-final_res_block, final_conv, conf). The JAX package's Dense is nn.Linear
+final_res_block, final_conv, conf). The JAX package's Dense is Linear
 here, and its Conv7x7RowSum (a TPU-speed decomposition) is a plain 7x7
-nn.Conv2d.
+conv: in bfloat16 both take bfloat16 operands, accumulate in float32 and
+round the output once.
+
+Compute dtype (`dtype`, the JAX modules' `dtype=`): every conv and linear
+layer computes in it over float32 parameters; WSConv standardizes its
+float32 kernel first; GroupNorm reduces and normalizes in float32 and
+returns its input's dtype; the time embedding is float32 until the MLP
+casts it.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffmvs_tpu_torch.nn.layers import SepConvGRU
+from diffmvs_tpu_torch.nn.layers import Conv2d, Linear, SepConvGRU
 
 
 def sinusoidal_pos_emb(t, dim):
@@ -44,27 +51,39 @@ class SinusoidalPosEmb(nn.Module):
         return sinusoidal_pos_emb(t, self.dim)
 
 
-class WSConv(nn.Conv2d):
-    """Weight-standardized conv: the kernel is standardized over
-    (in, kh, kw) per output channel with biased variance; eps 1e-5 in
-    float32 (1e-3 in lower precision)."""
+class WSConv(Conv2d):
+    """Weight-standardized conv: the float32 kernel is standardized over
+    (in, kh, kw) per output channel with biased variance, eps 1e-5 for a
+    float32 input (1e-3 for a lower-precision one), then cast to the
+    compute dtype."""
 
     def forward(self, x):
+        dt = self.compute_dtype
         eps = 1e-5 if x.dtype == torch.float32 else 1e-3
         w = self.weight
         mean = w.mean(dim=(1, 2, 3), keepdim=True)
         var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
         w = (w - mean) * torch.rsqrt(var + eps)
-        return F.conv2d(x, w, self.bias, self.stride, self.padding)
+        return F.conv2d(x.to(dt), w.to(dt), self.bias.to(dt), self.stride,
+                        self.padding)
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm whose statistics and normalization run in float32
+    (flax's force_float32_reductions), returning the input's dtype."""
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
 
 
 class Block(nn.Module):
     """WSConv -> GroupNorm -> (FiLM) -> SiLU."""
 
-    def __init__(self, in_ch, out_ch, groups=8):
+    def __init__(self, in_ch, out_ch, groups=8, dtype=torch.float32):
         super().__init__()
-        self.proj = WSConv(in_ch, out_ch, 3, padding=1)
-        self.norm = nn.GroupNorm(groups, out_ch, eps=1e-5)
+        self.proj = WSConv(in_ch, out_ch, 3, padding=1, dtype=dtype)
+        self.norm = GroupNorm(groups, out_ch, eps=1e-5)
 
     def forward(self, x, scale_shift=None):
         x = self.norm(self.proj(x))
@@ -77,14 +96,16 @@ class Block(nn.Module):
 class ResnetBlock(nn.Module):
     """Two Blocks + residual 1x1 (identity when the widths agree)."""
 
-    def __init__(self, in_ch, out_ch, time_dim=None, groups=4):
+    def __init__(self, in_ch, out_ch, time_dim=None, groups=4,
+                 dtype=torch.float32):
         super().__init__()
-        self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_dim, out_ch * 2))
+        self.mlp = (nn.Sequential(nn.SiLU(), Linear(time_dim, out_ch * 2,
+                                                    dtype=dtype))
                     if time_dim else None)
-        self.block1 = Block(in_ch, out_ch, groups)
-        self.block2 = Block(out_ch, out_ch, groups)
-        self.res_conv = (nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
-                         else nn.Identity())
+        self.block1 = Block(in_ch, out_ch, groups, dtype)
+        self.block2 = Block(out_ch, out_ch, groups, dtype)
+        self.res_conv = (Conv2d(in_ch, out_ch, 1, dtype=dtype)
+                         if in_ch != out_ch else nn.Identity())
 
     def forward(self, x, time_emb=None):
         scale_shift = None
@@ -99,16 +120,17 @@ class ResnetBlock(nn.Module):
 class Downsample(nn.Sequential):
     """Space-to-depth (2x2, channel c*4 + p1*2 + p2) + 1x1 conv."""
 
-    def __init__(self, in_ch, out_ch):
-        super().__init__(nn.PixelUnshuffle(2), nn.Conv2d(in_ch * 4, out_ch, 1))
+    def __init__(self, in_ch, out_ch, dtype=torch.float32):
+        super().__init__(nn.PixelUnshuffle(2),
+                         Conv2d(in_ch * 4, out_ch, 1, dtype=dtype))
 
 
 class Upsample(nn.Sequential):
     """Nearest x2 + 3x3 conv."""
 
-    def __init__(self, in_ch, out_ch):
+    def __init__(self, in_ch, out_ch, dtype=torch.float32):
         super().__init__(nn.Upsample(scale_factor=2, mode="nearest"),
-                         nn.Conv2d(in_ch, out_ch, 3, padding=1))
+                         Conv2d(in_ch, out_ch, 3, padding=1, dtype=dtype))
 
 
 class DiffusionUNet(nn.Module):
@@ -116,41 +138,41 @@ class DiffusionUNet(nn.Module):
 
     def __init__(self, dim: int, hidden_dim: int, input_dim: int,
                  dim_mults: Tuple[int, ...] = (1, 2),
-                 resnet_block_groups: int = 4):
+                 resnet_block_groups: int = 4, dtype=torch.float32):
         super().__init__()
-        g = resnet_block_groups
+        g, dt = resnet_block_groups, dtype
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         time_dim = dim * 4
 
-        self.init_conv = nn.Conv2d(input_dim, dim, 7, padding=3)
+        self.init_conv = Conv2d(input_dim, dim, 7, padding=3, dtype=dt)
         self.time_mlp = nn.Sequential(
-            SinusoidalPosEmb(dim), nn.Linear(dim, time_dim), nn.GELU(),
-            nn.Linear(time_dim, time_dim))
+            SinusoidalPosEmb(dim), Linear(dim, time_dim, dtype=dt),
+            nn.GELU(), Linear(time_dim, time_dim, dtype=dt))
 
         self.downs = nn.ModuleList()
         for ind, (dim_in, dim_out) in enumerate(in_out):
             is_last = ind >= len(in_out) - 1
-            down = (nn.Conv2d(dim_in, dim_out, 3, padding=1) if is_last
-                    else Downsample(dim_in, dim_out))
+            down = (Conv2d(dim_in, dim_out, 3, padding=1, dtype=dt)
+                    if is_last else Downsample(dim_in, dim_out, dt))
             self.downs.append(nn.ModuleList([
-                ResnetBlock(dim_in, dim_in, time_dim, g), down]))
+                ResnetBlock(dim_in, dim_in, time_dim, g, dt), down]))
 
-        self.gru = SepConvGRU(hidden_dim, dims[-1])
+        self.gru = SepConvGRU(hidden_dim, dims[-1], dtype=dt)
         # the mid block is not time-conditioned
-        self.mid = ResnetBlock(hidden_dim, dims[-1], None, g)
+        self.mid = ResnetBlock(hidden_dim, dims[-1], None, g, dt)
 
         self.ups = nn.ModuleList()
         for ind, (dim_in, dim_out) in enumerate(reversed(in_out)):
             is_last = ind == len(in_out) - 1
-            up = (nn.Conv2d(dim_out, dim_in, 3, padding=1) if is_last
-                  else Upsample(dim_out, dim_in))
+            up = (Conv2d(dim_out, dim_in, 3, padding=1, dtype=dt) if is_last
+                  else Upsample(dim_out, dim_in, dt))
             self.ups.append(nn.ModuleList([
-                ResnetBlock(dim_out + dim_in, dim_out, time_dim, g), up]))
+                ResnetBlock(dim_out + dim_in, dim_out, time_dim, g, dt), up]))
 
-        self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, g)
-        self.final_conv = nn.Conv2d(dim, 1, 1)
-        self.conf = nn.Conv2d(dim, 1, 1)
+        self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, g, dt)
+        self.final_conv = Conv2d(dim, 1, 1, dtype=dt)
+        self.conf = Conv2d(dim, 1, 1, dtype=dt)
 
     def forward(self, x, hidden, time):
         """x: [B, Cin, H, W]; hidden: [B, hidden_dim, H/2^(L-1), W/2^(L-1)];
@@ -183,17 +205,22 @@ class ConditionEncoder(nn.Module):
     learned channels with the raw inverse depth as the last channel."""
 
     def __init__(self, cost_dim: int, num_sample: int, hidden_dim: int,
-                 out_chs: int):
+                 out_chs: int, dtype=torch.float32):
         super().__init__()
-        self.convc1 = nn.Conv2d(cost_dim, hidden_dim, 3, padding=1)
-        self.convc2 = nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1)
-        self.convd1 = nn.Conv2d(num_sample, hidden_dim, 3, padding=1)
-        self.convd2 = nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1)
-        self.output = nn.Conv2d(2 * hidden_dim, out_chs - 1, 3, padding=1)
+        self.convc1 = Conv2d(cost_dim, hidden_dim, 3, padding=1, dtype=dtype)
+        self.convc2 = Conv2d(hidden_dim, hidden_dim, 3, padding=1,
+                             dtype=dtype)
+        self.convd1 = Conv2d(num_sample, hidden_dim, 3, padding=1,
+                             dtype=dtype)
+        self.convd2 = Conv2d(hidden_dim, hidden_dim, 3, padding=1,
+                             dtype=dtype)
+        self.output = Conv2d(2 * hidden_dim, out_chs - 1, 3, padding=1,
+                             dtype=dtype)
 
     def forward(self, depth, depth_values, cost_volume):
         """depth: [B,1,H,W]; depth_values: [B,CostNum,H,W];
-        cost_volume: [B,G*CostNum,H,W]. Returns [B, out_chs, H, W]."""
+        cost_volume: [B,G*CostNum,H,W]. Returns [B, out_chs, H, W], the
+        learned channels promoted to the depth's dtype by the concat."""
         c = F.relu(self.convc1(cost_volume))
         c = F.relu(self.convc2(c))
         d = F.relu(self.convd1(depth_values))

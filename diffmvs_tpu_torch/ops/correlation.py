@@ -42,15 +42,21 @@ def warp_and_correlate_plain(src_fea, ref_fea, src_pair, ref_pair,
                              depth_values, groups):
     """Plane-sweep warp + group correlation in plain PyTorch.
 
-    src_fea/ref_fea: [B, Hs, Ws, C] / [B, H, W, C] (NHWC).
+    src_fea/ref_fea: [B, Hs, Ws, C] / [B, H, W, C] (NHWC), float32 or
+    bfloat16: bfloat16 features are upcast as they are read and the
+    interpolation and group mean run in float32, as the kernels compute
+    them (the caller rounds the result once, to the features' dtype). The
+    JAX package's default XLA warp interpolates and multiplies bfloat16
+    features in bfloat16 instead (diffmvs_tpu/geometry/sampling.py:52-54);
+    its Pallas kernels upcast, as here.
     src_pair/ref_pair: [B, 2, 4, 4] (extrinsic, intrinsic) stacks.
     depth_values: [B, D, H, W] metric hypotheses.
-    Returns [B, D, H, W, G] in the features' dtype.
+    Returns [B, D, H, W, G] float32.
     """
     rot, trans = relative_projection(src_pair, ref_pair)
     x, y = plane_sweep_coords(rot, trans, depth_values)
-    warped = bilinear_sample(src_fea, x, y)
-    return group_correlation(warped, ref_fea, groups)
+    warped = bilinear_sample(src_fea.float(), x, y)
+    return group_correlation(warped, ref_fea.float(), groups)
 
 
 def corner_correlate_plain(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
@@ -93,9 +99,9 @@ def warp_and_correlate(src_fea, ref_fea, src_pair, ref_pair, depth_values,
     """Fused plane-sweep warp + group correlation for one source view.
 
     Same arguments and result as warp_and_correlate_plain, differentiable
-    in the two feature maps. On CUDA tensors it runs the kernels (float32
-    result, a [B, D, H, W, G] view of a [B, G, D, H, W] buffer); on CPU
-    tensors the plain version.
+    in the two feature maps (their gradients in their own dtype). On CUDA
+    tensors it runs the kernels (a [B, D, H, W, G] view of a [B, G, D, H,
+    W] buffer); on CPU tensors the plain version.
     """
     if src_fea.is_cuda:
         return warp_corr.warp_corr(src_fea, ref_fea, src_pair, ref_pair,

@@ -18,10 +18,15 @@
 // projections and the depths get no gradient (the coordinates are
 // stop-gradient'ed, as the reference computes them under no_grad).
 //
-// Layouts: src [N, Hs, Ws, C], ref [N, H, W, C] f32 channels-last; depth
-// [N, D, H, W] f32; rt [N, 12] f32; g [N, G, D, H, W] f32 (the buffer order
-// of the forward's output); d_src [N, Hs, Ws, C] f32, zero-filled by the
-// caller; d_ref [N, H, W, C] f32, written whole here.
+// Layouts: src [N, Hs, Ws, C], ref [N, H, W, C] channels-last, f32 or bf16
+// (both the same); depth [N, D, H, W] f32; rt [N, 12] f32; g [N, G, D, H,
+// W] f32 (the buffer order of the forward's output); d_src [N, Hs, Ws, C]
+// f32, zero-filled by the caller; d_ref [N, H, W, C] in the features' type,
+// written whole here. bf16 features are read as they are and upcast on
+// load, as the forward reads them (warp_geom's load_k: 4 channels in 8
+// bytes); every sum is f32, d_ref is rounded to bf16 once as it is stored,
+// and the caller rounds d_src's f32 sums once. (The TPU kernel takes f32
+// only: its caller casts bf16 features to f32 in device memory first.)
 //
 // The TPU kernel's band/window geometry and one-hot MXU scatter exist only
 // because Mosaic has no lane scatter; on Hopper d_src is a scatter.
@@ -33,7 +38,8 @@
 // sent them as scalar f32 atomics, resolved one by one in L2. Design:
 //   * a block owns a 2-D tile of ref pixels and walks the D planes; C/K
 //     neighbouring threads share a pixel, K channels each (K = 4: float4
-//     loads; K = 1 where C/G % 4 != 0 or a base is not 16-byte aligned),
+//     loads, or 8-byte loads of 4 bf16; K = 1 where C/G % 4 != 0 or a base
+//     is not aligned to 4 channels),
 //     so ref, the corners and the d_src adds are contiguous across a warp
 //     (a C / K above 256 is taken in launches of 256 lanes' channels);
 //   * the block computes each (plane, pixel) sample once, a batch of planes
@@ -68,41 +74,16 @@
 namespace {
 
 using warp_geom::bilerp;
-using warp_geom::load1;
-using warp_geom::load4;
+using warp_geom::load_or_zero;
 
 constexpr int kThreads = 256;          // threads per block at most
 constexpr int kMinBlocks = 4;          // resident blocks per SM (registers)
 constexpr size_t kRecBytes = 24 * 1024;  // the samples of a batch of planes
 
-template <int K>
-struct Vec {
-  float v[K];
-};
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 
-template <int K>
-__device__ __forceinline__ Vec<K> load_k(const float* p) {
-  Vec<K> out;
-  if constexpr (K == 4) {
-    const float4 a = load4(p);
-    out.v[0] = a.x;
-    out.v[1] = a.y;
-    out.v[2] = a.z;
-    out.v[3] = a.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; ++k) out.v[k] = load1(p + k);
-  }
-  return out;
-}
-
-template <int K>
-__device__ __forceinline__ Vec<K> load_or_zero(bool valid, const float* p) {
-  if (valid) return load_k<K>(p);
-  Vec<K> z;
-#pragma unroll
-  for (int k = 0; k < K; ++k) z.v[k] = 0.0f;
-  return z;
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 // K values into global memory: one 128-bit atomic (K = 4) or K scalar ones
@@ -120,15 +101,15 @@ __device__ __forceinline__ void global_add(float* p, const float* v) {
 // One block: a tile of P = 1 << p_log2 ref pixels, tw = 1 << tw_log2
 // wide, of sample blockIdx.y, all D planes, their samples computed db
 // planes at a time, channels [c_off, c_off + cs) of the C; thread = pixel *
-// (cs / K) + lane, lane owning channels [c_off + lane * K, + K).
-template <int K>
+// (cs / K) + lane, lane owning channels [c_off + lane * K, + K). T: the
+// features' type (float or __nv_bfloat16).
+template <typename T, int K>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-warp_corr_bwd_kernel(const float* __restrict__ src,
-                     const float* __restrict__ ref,
+warp_corr_bwd_kernel(const T* __restrict__ src, const T* __restrict__ ref,
                      const float* __restrict__ depth,
                      const float* __restrict__ rt,
                      const float* __restrict__ g, float* __restrict__ d_src,
-                     float* __restrict__ d_ref, int D, int H, int W, int Hs,
+                     T* __restrict__ d_ref, int D, int H, int W, int Hs,
                      int Ws, int C, int G, int c_off, int cs, int p_log2,
                      int tw_log2, int tiles_x, int db) {
   extern __shared__ float4 smem[];        // the samples of db planes [db][P]
@@ -159,16 +140,11 @@ warp_corr_bwd_kernel(const float* __restrict__ src,
       g + (static_cast<size_t>(n) * G + grp) * D * static_cast<size_t>(hw) +
       pix;
   const size_t img = static_cast<size_t>(n) * Hs * Ws * C + c0;
-  const float* s_img = src + img;
+  const T* s_img = src + img;
   float* ds_img = d_src + img;
   const size_t ref_off = (static_cast<size_t>(n) * hw + pix) * C + c0;
-  Vec<K> r;
-  if (live) {
-    r = load_k<K>(ref + ref_off);
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; ++k) r.v[k] = 0.0f;
-  }
+  float r[K];
+  load_or_zero<K>(live, ref + ref_off, r);
   float acc[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[k] = 0.0f;
@@ -205,13 +181,14 @@ warp_corr_bwd_kernel(const float* __restrict__ src,
       const float gd = g_p[static_cast<size_t>(d0 + k) * hw] * inv_cg;
 
       // d_ref: the forward's sample, re-read
-      const Vec<K> a = load_or_zero<K>(s.v00, s_img + size_t(s.i00) * C);
-      const Vec<K> b = load_or_zero<K>(s.v01, s_img + size_t(s.i01) * C);
-      const Vec<K> e = load_or_zero<K>(s.v10, s_img + size_t(s.i10) * C);
-      const Vec<K> f = load_or_zero<K>(s.v11, s_img + size_t(s.i11) * C);
+      float a[K], b[K], e[K], f[K];
+      load_or_zero<K>(s.v00, s_img + size_t(s.i00) * C, a);
+      load_or_zero<K>(s.v01, s_img + size_t(s.i01) * C, b);
+      load_or_zero<K>(s.v10, s_img + size_t(s.i10) * C, e);
+      load_or_zero<K>(s.v11, s_img + size_t(s.i11) * C, f);
 #pragma unroll
       for (int q = 0; q < K; ++q) {
-        acc[q] += gd * bilerp(a.v[q], b.v[q], e.v[q], f.v[q], s.wx, s.wy);
+        acc[q] += gd * bilerp(a[q], b[q], e[q], f[q], s.wx, s.wy);
       }
 
       // d_src: the weighted cotangent into the in-image corners
@@ -231,7 +208,7 @@ warp_corr_bwd_kernel(const float* __restrict__ src,
           for (int k2 = 0; k2 < K; ++k2) hv[q][k2] = 0.0f;
         }
 #pragma unroll
-        for (int k2 = 0; k2 < K; ++k2) hv[q][k2] += wq[q] * (gd * r.v[k2]);
+        for (int k2 = 0; k2 < K; ++k2) hv[q][k2] += wq[q] * (gd * r[k2]);
       }
     }
   }
@@ -244,14 +221,14 @@ warp_corr_bwd_kernel(const float* __restrict__ src,
       }
     }
 #pragma unroll
-    for (int k = 0; k < K; ++k) d_ref[ref_off + k] = acc[k];
+    for (int k = 0; k < K; ++k) store1(d_ref + ref_off + k, acc[k]);
   }
 }
 
 // one launch for channels [c_off, c_off + cs) of the c, cs / K <= kThreads
-template <int K>
-int launch_k(const float* src, const float* ref, const float* depth,
-             const float* rt, const float* g, float* d_src, float* d_ref,
+template <typename T, int K>
+int launch_k(const T* src, const T* ref, const float* depth,
+             const float* rt, const float* g, float* d_src, T* d_ref,
              int n, int d, int h, int w, int hs, int ws, int c, int groups,
              int c_off, int cs, cudaStream_t stream) {
   const int lanes = cs / K;
@@ -270,56 +247,80 @@ int launch_k(const float* src, const float* ref, const float* depth,
   const size_t rec = sizeof(warp_geom::SampleRec) << p_log2;
   const int db = max(1, min(d, static_cast<int>(kRecBytes / rec)));
   const dim3 grid(static_cast<unsigned>(tiles), n);
-  warp_corr_bwd_kernel<K><<<grid, (1 << p_log2) * lanes, rec * db,
-                            stream>>>(src, ref, depth, rt, g, d_src, d_ref,
-                                      d, h, w, hs, ws, c, groups, c_off, cs,
-                                      p_log2, tw_log2, tiles_x, db);
+  warp_corr_bwd_kernel<T, K><<<grid, (1 << p_log2) * lanes, rec * db,
+                               stream>>>(src, ref, depth, rt, g, d_src,
+                                         d_ref, d, h, w, hs, ws, c, groups,
+                                         c_off, cs, p_log2, tw_log2, tiles_x,
+                                         db);
   return static_cast<int>(cudaGetLastError());
 }
 
 // every channel: launches of at most kThreads * K channels each (one
 // launch unless C / K > 256, fewer than one pixel per block)
-template <int K>
-int launch(const float* src, const float* ref, const float* depth,
-           const float* rt, const float* g, float* d_src, float* d_ref,
-           int n, int d, int h, int w, int hs, int ws, int c, int groups,
-           cudaStream_t stream) {
+template <typename T, int K>
+int launch(const T* src, const T* ref, const float* depth, const float* rt,
+           const float* g, float* d_src, T* d_ref, int n, int d, int h,
+           int w, int hs, int ws, int c, int groups, cudaStream_t stream) {
   for (int c_off = 0; c_off < c; c_off += kThreads * K) {
-    const int err = launch_k<K>(src, ref, depth, rt, g, d_src, d_ref, n, d,
-                                h, w, hs, ws, c, groups, c_off,
-                                min(kThreads * K, c - c_off), stream);
+    const int err = launch_k<T, K>(src, ref, depth, rt, g, d_src, d_ref, n,
+                                   d, h, w, hs, ws, c, groups, c_off,
+                                   min(kThreads * K, c - c_off), stream);
     if (err != 0) return err;
   }
   return 0;
 }
 
+// one feature type: 4 channels a thread (float4 or 8-byte bf16 loads,
+// 128-bit atomics) where C/G % 4 == 0 and the bases allow it, else 1
+template <typename T>
+int launch_dtype(const void* src, const void* ref, const float* depth,
+                 const float* rt, const float* g, float* d_src, void* d_ref,
+                 int n, int d, int h, int w, int hs, int ws, int c,
+                 int groups, cudaStream_t stream) {
+  const T* s = static_cast<const T*>(src);
+  const T* r = static_cast<const T*>(ref);
+  T* dr = static_cast<T*>(d_ref);
+  const bool vec = (c / groups) % 4 == 0 &&
+                   warp_geom::aligned(s, 4 * sizeof(T)) &&
+                   warp_geom::aligned(r, 4 * sizeof(T)) &&
+                   warp_geom::aligned(d_src, 16) &&
+                   warp_geom::aligned(dr, 4 * sizeof(T));
+  if (vec) {
+    return launch<T, 4>(s, r, depth, rt, g, d_src, dr, n, d, h, w, hs, ws, c,
+                        groups, stream);
+  }
+  return launch<T, 1>(s, r, depth, rt, g, d_src, dr, n, d, h, w, hs, ws, c,
+                      groups, stream);
+}
+
 }  // namespace
 
-// Plain C interface (loaded with ctypes), float32 only. d_src must be
-// zero-filled. Returns the cudaError_t of the launch (0 = ok).
-extern "C" int warp_corr_backward(const void* src, const void* ref,
-                                  const void* depth, const void* rt,
-                                  const void* g, void* d_src, void* d_ref,
-                                  int n, int d, int h, int w, int hs, int ws,
-                                  int c, int groups, void* stream) {
+// Plain C interface (loaded with ctypes): dtype 0 = float32 features, 1 =
+// bfloat16; d_ref in the features' type; the depths, projections, cotangent
+// and d_src float32, d_src zero-filled. Returns the cudaError_t of the
+// launches (0 = ok).
+extern "C" int warp_corr_backward(int dtype, const void* src,
+                                  const void* ref, const void* depth,
+                                  const void* rt, const void* g, void* d_src,
+                                  void* d_ref, int n, int d, int h, int w,
+                                  int hs, int ws, int c, int groups,
+                                  void* stream) {
   if (n == 0 || h == 0 || w == 0 || c == 0) return 0;
-  const float* s = static_cast<const float*>(src);
-  const float* r = static_cast<const float*>(ref);
-  float* ds = static_cast<float*>(d_src);
-  float* dr = static_cast<float*>(d_ref);
-  const bool vec = (c / groups) % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(s) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(r) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(ds) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dr) % 16 == 0;
+  if (groups <= 0 || c % groups != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const float* dp = static_cast<const float*>(depth);
   const float* rp = static_cast<const float*>(rt);
   const float* gp = static_cast<const float*>(g);
+  float* ds = static_cast<float*>(d_src);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    return launch<4>(s, r, dp, rp, gp, ds, dr, n, d, h, w, hs, ws, c, groups,
-                     st);
+  if (dtype == 0) {
+    return launch_dtype<float>(src, ref, dp, rp, gp, ds, d_ref, n, d, h, w,
+                               hs, ws, c, groups, st);
   }
-  return launch<1>(s, r, dp, rp, gp, ds, dr, n, d, h, w, hs, ws, c, groups,
-                   st);
+  if (dtype == 1) {
+    return launch_dtype<__nv_bfloat16>(src, ref, dp, rp, gp, ds, d_ref, n, d,
+                                       h, w, hs, ws, c, groups, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,7 +33,8 @@ Gradients: warp_corr() runs K1 inside WarpCorr (K3 inside WarpCorrPre),
 torch.autograd.Functions whose backward launches K2 for the feature
 gradients and gives the projections, the depths and the corner operands
 none (the coordinates are stop-gradient'ed, as in the reference). K2
-takes float32 features only.
+reads float32 or bfloat16 features, sums in float32 and returns the
+gradients in the features' dtype.
 """
 
 from __future__ import annotations
@@ -154,7 +155,8 @@ def _load():
         fwd.warp_corr_forward.restype = ctypes.c_int
         bwd = ctypes.CDLL(str(libs["warp_corr_bwd"]))
         bwd.warp_corr_backward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            + [ctypes.c_void_p])
         bwd.warp_corr_backward.restype = ctypes.c_int
         _lib, _bwd_lib = fwd, bwd
     return _lib, _bwd_lib
@@ -193,7 +195,7 @@ def warp_corr(src_fea, ref_fea, src_pair, ref_pair, depth_values, groups,
     """Kernel launch of warp_and_correlate.
 
     src_fea [N, Hs, Ws, C], ref_fea [N, H, W, C]: contiguous, float32 or
-    bfloat16 (the same for both; float32 where a gradient is needed);
+    bfloat16 (the same for both);
     depth_values [N, D, H, W] contiguous float32; src_pair/ref_pair
     [N, 2, 4, 4].
     batch_rows=True launches K1 (CUDA tensors only); batch_rows=False goes
@@ -213,16 +215,7 @@ def warp_corr(src_fea, ref_fea, src_pair, ref_pair, depth_values, groups,
 def warp_corr_rt(src_fea, ref_fea, rt, depth_values, groups):
     """warp_corr with the projection already packed as [N, 12] scalars."""
     _check_forward(src_fea, ref_fea, rt, depth_values, groups)
-    _check_grad_dtype(src_fea, ref_fea)
     return WarpCorr.apply(src_fea, ref_fea, rt, depth_values, groups)
-
-
-def _check_grad_dtype(src_fea, ref_fea):
-    if (torch.is_grad_enabled()
-            and (src_fea.requires_grad or ref_fea.requires_grad)
-            and src_fea.dtype != torch.float32):
-        raise TypeError("warp_corr: the backward kernel takes float32 "
-                        f"features only, got {src_fea.dtype}")
 
 
 class WarpCorr(torch.autograd.Function):
@@ -309,16 +302,20 @@ def _launch_forward(src_fea, ref_fea, rt, depth_values, groups):
 def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups):
     """K2: the feature gradients of warp_corr_rt (CUDA tensors only).
 
-    src_fea, ref_fea, rt, depth_values as for warp_corr_rt, float32
-    features; g [N, G, D, H, W] contiguous float32, the cotangent of the
-    forward's output in its buffer order.
-    Returns (d_src [N, Hs, Ws, C], d_ref [N, H, W, C]) float32.
+    src_fea, ref_fea, rt, depth_values as for warp_corr_rt (float32 or
+    bfloat16 features, read as they are); g [N, G, D, H, W] contiguous
+    float32, the cotangent of the forward's float32 output in its buffer
+    order. K2 sums both gradients in float32: d_ref in registers, rounded
+    once as it is stored; d_src by atomics into a float32 buffer, rounded
+    once here.
+    Returns (d_src [N, Hs, Ws, C], d_ref [N, H, W, C]) in the features'
+    dtype, as autograd wants them.
     """
     global bwd_launches
     _check_forward(src_fea, ref_fea, rt, depth_values, groups)
-    if src_fea.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"warp_corr_backward: float32 only, got features "
-                        f"{src_fea.dtype}, cotangent {g.dtype}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"warp_corr_backward: the cotangent must be "
+                        f"float32, got {g.dtype}")
     n, hs, ws, c = src_fea.shape
     _, d, h, w = depth_values.shape
     dev = src_fea.device
@@ -328,20 +325,21 @@ def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups):
                          f"must be a contiguous [N, G, D, H, W] = "
                          f"{(n, groups, d, h, w)} tensor on {dev}")
     _, lib = _load()
-    d_src = torch.zeros_like(src_fea)
+    d_src = torch.zeros(src_fea.shape, dtype=torch.float32, device=dev)
     d_ref = torch.empty_like(ref_fea)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.warp_corr_backward(
-            src_fea.data_ptr(), ref_fea.data_ptr(), depth_values.data_ptr(),
-            rt.data_ptr(), g.data_ptr(), d_src.data_ptr(), d_ref.data_ptr(),
-            n, d, h, w, hs, ws, c, groups, stream)
+            _DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
+            ref_fea.data_ptr(), depth_values.data_ptr(), rt.data_ptr(),
+            g.data_ptr(), d_src.data_ptr(), d_ref.data_ptr(), n, d, h, w, hs,
+            ws, c, groups, stream)
     if err != 0:
         raise RuntimeError(f"warp_corr_backward: kernel launch failed, "
                            f"cudaError {err}")
     bwd_launches += 1
     bwd_launches_by_shape[(d, h, w, c)] += 1
-    return d_src, d_ref
+    return d_src.to(src_fea.dtype), d_ref
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +406,6 @@ def warp_corr_pre(src_fea, ref_fea, src_pair, ref_pair, depth_values,
         rt = projection_scalars(src_pair, ref_pair)
         ops = corner_operands_rt(rt, depth_values, hs, ws)
         return corner_correlate_plain(src_fea, ref_fea, *ops, groups)
-    _check_grad_dtype(src_fea, ref_fea)
     rt = launch_projection(src_pair, ref_pair)
     ops = launch_operands(rt, depth_values, hs, ws)
     return WarpCorrPre.apply(src_fea, ref_fea, *ops, rt, depth_values,

@@ -3,9 +3,11 @@ shapes, K3 (with its operands and its entry, warp_corr(...,
 batch_rows=False)) at the three DTU shapes: CUDA-event times with L2 warm
 and with L2 flushed, beside each kernel's bound.
 
-    python3 diffmvs_tpu_torch/tools/kernel_times.py [--root DIR]
+    python3 diffmvs_tpu_torch/tools/kernel_times.py [--root DIR] [--dtype bf16]
 
---root is the checkout whose diffmvs_tpu_torch is timed (default: the one
+--dtype is the features' dtype of K2 (f32 by default, the only one a tree
+from before K2 read bf16 takes); K1 and K3 are timed in both. --root is
+the checkout whose diffmvs_tpu_torch is timed (default: the one
 this file belongs to), so that one timing code times two trees in one
 call on one card, e.g. an earlier commit unpacked with `git archive`
 (each tree builds its own kernels under its own build/). Inputs are made
@@ -124,14 +126,15 @@ def operands_bound(n, d, h, w):
     return bound(n * d * h * w * 21 + n * 48, n * d * h * w * 30)
 
 
-def bwd_bound(n, d, h, w, hs, ws, c, g, inside, corners):
-    """K2: g, src, ref, depth read once, d_src and d_ref written once,
-    against ~20 operations per sample for the coordinates, 9 per channel of
-    an in-image sample (re-sampling, the d_ref product-accumulate, the
+def bwd_bound(n, d, h, w, hs, ws, c, g, inside, corners, feat_bytes=4):
+    """K2: g, src, ref, depth read once, d_src and d_ref written once (the
+    features and their gradients feat_bytes per value), against ~20
+    operations per sample for the coordinates, 9 per channel of an
+    in-image sample (re-sampling, the d_ref product-accumulate, the
     scatter value) and 2 per channel of an in-image corner (its weight and
     its atomic add)."""
-    nbytes = 4 * (n * g * d * h * w + 2 * n * hs * ws * c + 2 * n * h * w * c
-                  + n * d * h * w) + n * 48
+    nbytes = (4 * (n * g * d * h * w + n * d * h * w) + n * 48 + feat_bytes
+              * (2 * n * hs * ws * c + 2 * n * h * w * c))
     return bound(nbytes, 20 * n * d * h * w + 9 * c * inside + 2 * c * corners)
 
 
@@ -269,7 +272,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parents[2]))
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="K2's feature dtype")
     args = ap.parse_args(argv)
+    k2_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
         return 1
@@ -283,7 +289,7 @@ def main(argv=None):
     warp_corr.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    res = {"module": warp_corr.__file__, "smi": smi,
+    res = {"module": warp_corr.__file__, "smi": smi, "k2_dtype": args.dtype,
            "k1": {}, "k2": {}, "k3": {}, "k3_operands": {}}
     # the refinement shapes also with smooth depth maps (make_depth)
     cases = [(name, False) for name in INFER_SHAPES] + [
@@ -311,10 +317,12 @@ def main(argv=None):
         src = torch.randn(TRAIN_B, h, w, c, device=dev, generator=gen)
         ref = torch.randn(TRAIN_B, h, w, c, device=dev, generator=gen)
         g = torch.randn(TRAIN_B, 4, d, h, w, device=dev, generator=gen)
+        src, ref = src.to(k2_dtype), ref.to(k2_dtype)
         times = timings(lambda: warp_corr.warp_corr_backward(
             src, ref, rt, depth, g, 4))
         _, inside, corners = sample_counts(sp, rp, depth, h, w)
-        b, _ = bwd_bound(TRAIN_B, d, h, w, h, w, c, 4, inside, corners)
+        b, _ = bwd_bound(TRAIN_B, d, h, w, h, w, c, 4, inside, corners,
+                         src.element_size())
         res["k2"][name + (":smooth" if smooth else "")] = dict(
             **times, bound_ms=b)
     time_k3(warp_corr, res, dev, gen)

@@ -2,13 +2,16 @@
 training step, under torch.profiler.
 
     python3 -m diffmvs_tpu_torch.tools.profile_main [--requests 2] [--train]
+        [--dtype bf16]
 
 Default: DepthRunner.from_random("casdiffmvs", device="cuda", seed=0) at
-DTU size (1152x1600, 5 views, 48/384 hypotheses, f32) answers one
-warm-up request, then --requests more are profiled. --train: the training
-cell instead (CasDiffMVS f32, B=4, 5 views, 512x640, 48/384 hypotheses,
-random init from seed 0, a synthetic batch): one warm-up train_step, then
---requests steps. Prints the card, the wall time per request or step, the
+DTU size (1152x1600, 5 views, 48/384 hypotheses) answers one warm-up
+request, then --requests more are profiled. --train: the training cell
+instead (CasDiffMVS, B=4, 5 views, 512x640, 48/384 hypotheses, random
+init from seed 0, a synthetic batch): one warm-up train_step, then
+--requests steps. --dtype: the conv stacks' compute dtype, f32 (default)
+or bf16, the configuration bench.py serves and trains in (with remat on
+for training, as bench.py's training cell has it). Prints the card, the wall time per request or step, the
 device's busy time and idle share over the profiled window, the device
 time per kernel group, and the top kernels. Needs CUDA; fails without it.
 """
@@ -51,27 +54,36 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def request_work():
+DTYPES = {"f32": "float32", "bf16": "bfloat16"}
+
+
+def request_work(dtype):
     """One export request at DTU size."""
     from diffmvs_tpu_torch.api import DepthRunner
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
     hh, ww, views = 1152, 1600, 5
     runner = DepthRunner.from_random("casdiffmvs", image_hw=(hh, ww),
-                                     views=views, device="cuda", seed=0)
+                                     views=views, device="cuda", seed=0,
+                                     compute_dtype=DTYPES[dtype])
     inputs = synthetic_inputs(1, views, hh, ww, 384, seed=0)
     return lambda: runner(*inputs)
 
 
-def train_work():
+def train_work(dtype):
     """One train step of the training cell (the batch is uploaded from
     host memory in every step, as in run_training)."""
+    import dataclasses
+
     from diffmvs_tpu_torch.config import MODEL_PRESETS, TrainConfig
     from diffmvs_tpu_torch.train.state import create_train_state
     from diffmvs_tpu_torch.train.step import train_step
     from diffmvs_tpu_torch.utils.synthetic import synthetic_train_batch
 
-    cfg = TrainConfig(model=MODEL_PRESETS["casdiffmvs"], batch_size=4, seed=0)
+    model = dataclasses.replace(MODEL_PRESETS["casdiffmvs"],
+                                compute_dtype=DTYPES[dtype],
+                                remat=dtype == "bf16")
+    cfg = TrainConfig(model=model, batch_size=4, seed=0)
     state = create_train_state(cfg, steps_per_epoch=100, device="cuda",
                                seed=0)
     batch = synthetic_train_batch(4, 5, 512, 640, 384, seed=0)
@@ -85,6 +97,8 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--train", action="store_true",
                     help="profile train steps of the training cell")
+    ap.add_argument("--dtype", choices=tuple(DTYPES), default="f32",
+                    help="compute dtype of the conv stacks")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: CUDA is not available")
@@ -92,7 +106,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    work = train_work() if args.train else request_work()
+    work = (train_work if args.train else request_work)(args.dtype)
     work()                                               # warm-up
     torch.cuda.synchronize()
 
@@ -126,6 +140,7 @@ def main(argv=None):
         groups[group_of(name)] += us / 1e3 / args.requests
     print(f"card: {smi}")
     print(json.dumps({
+        "dtype": args.dtype,
         f"{unit}_ms": [round(w, 3) for w in wall],
         f"device_busy_ms_per_{unit}": round(busy_ms, 3),
         "device_idle_share": round(max(0.0, 1.0 - busy_ms / req_ms), 4),

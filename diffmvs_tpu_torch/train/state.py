@@ -54,10 +54,10 @@ def create_train_state(cfg, steps_per_epoch: int = 1000, device=None,
                        state_dict: Optional[Dict] = None) -> TrainState:
     """Model (torch default init from `seed`, or `state_dict`), optimizer
     and schedule on `device`: CUDA unless device="cpu" is asked for;
-    without a card that raises. cfg: TrainConfig."""
+    without a card that raises. cfg: TrainConfig. The parameters and the
+    optimizer state are float32 for either compute dtype."""
     dev = resolve_device(device)
-    if cfg.model.compute_dtype == "float32":
-        set_f32_precision()
+    set_f32_precision()
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = CasDiffMVS(cfg.model)

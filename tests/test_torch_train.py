@@ -263,17 +263,20 @@ def test_backward_kernel_wrapper_refuses_cpu_tensors(rng):
 # the training step against JAX
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def train_parity():
+def train_parity_case(preset, **overrides):
     """One training-branch forward + backward on each side: B=2, 3 views,
     64x96, 8/32 hypotheses, invalid-GT pixels and partial masks, the same
     injected timesteps and noise, the JAX weights carried into the port.
+    preset: "casdiffmvs" or "diffmvs"; overrides: ModelConfig fields set
+    on both sides (e.g. compute_dtype, remat).
 
     Returns (JAX loss, JAX grads as a port state_dict, JAX batch_stats as
     a port state_dict, port loss, port model after the step, BatchNorm
     calls and elements per channel by module name)."""
-    cfg_j = dataclasses.replace(CASDIFFMVS, **SMALL)
-    cfg_t = dataclasses.replace(tconfig.CASDIFFMVS, **SMALL)
+    jax_presets = {"casdiffmvs": CASDIFFMVS, "diffmvs": DIFFMVS}
+    cfg_j = dataclasses.replace(jax_presets[preset], **SMALL, **overrides)
+    cfg_t = dataclasses.replace(tconfig.MODEL_PRESETS[preset], **SMALL,
+                                **overrides)
     b, v, h, w = 2, 3, 64, 96
     rng = np.random.RandomState(0)
     batch = make_batch(rng, b, v, h, w, numdepth=32, with_gt=True)
@@ -328,6 +331,12 @@ def train_parity():
         port, tconfig.TrainConfig(model=cfg_t, batch_size=b),
         batch_to_device(batch, "cpu"), train_overrides=overrides)
     return float(loss_j), grads_sd, stats_sd, float(loss_t), port, bn_calls
+
+
+@pytest.fixture(scope="module", params=["casdiffmvs", "diffmvs"])
+def train_parity(request):
+    """train_parity_case of each variant, float32."""
+    return train_parity_case(request.param)
 
 
 def test_train_step_gradients_match_jax(train_parity):
