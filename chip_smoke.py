@@ -76,6 +76,31 @@ Phases (one line each; any failure exits non-zero):
                      accuracy/completeness against a plane on card and CPU;
                      views/s and its split into load, inference, write and
                      fusion on the host's and the card's clock
+ 13. train_cli    -- the training entry point through the data layer:
+                     cli.train.main on a synthetic DTU training scan (5
+                     views x 7 lights, 512x640 PNGs, 1200x1600 depth and
+                     visibility), CasDiffMVS f32, B=4, 48/384, 2 loader
+                     workers: an epoch of 8 steps and its validation,
+                     --resume for the second (its first logged step 8 at
+                     the schedule's learning rate), --mode test; 28 K1 +
+                     28 K2 launches every step, finite losses, both
+                     checkpoints; samples/s beside train's, the host gaps
+                     between steps one by one with the loop's image saving
+                     in each, peak memory
+ 14. train_cli_blend -- cli.train on a synthetic BlendedMVS scan at 576x768,
+                     B=2, 2 steps from train_cli's checkpoint through
+                     --loadckpt's strict .ckpt path; its step times and
+                     the gap between them
+ 15. ddp          -- the data-parallel step (SyncBatchNorm, DDP, the global
+                     batch's noise) in an NCCL group of one on 127.0.0.1
+                     against the plain step, two steps of the training cell:
+                     loss rel < 1e-5, gradient cosine > 0.9999, BatchNorm
+                     running statistics within 1e-5 after each step
+ 16. colmap       -- tools.colmap.convert(..., vggt=True) on a synthetic
+                     49-image sparse model with the DeiT-S retrieval ViT
+                     (random weights from seed 0) on the card: descriptors
+                     against the CPU's (max abs < 1e-4), cams/ and
+                     pair.txt equal to a CPU conversion's; images/s
 Then a JSON line of per-kernel numbers (K1's launches from main and
 main_bf16, K2's from train and train_bf16, K3's, the operand and the
 projection kernel's from the k3_kernel entry calls), the nvidia-smi line,
@@ -966,12 +991,57 @@ def phase_k3_kernel(run):
         grad_cosine_vs_k1=f"{cos:.9f}", grad_max_abs_diff=f"{diff:.3e}")
 
 
+def arc_extrinsic(i, views):
+    """World-to-camera extrinsic of camera i of `views` on a gentle arc
+    (4.6 degrees apart) 650 mm from a point in front of the middle one."""
+    import numpy as np
+
+    center = np.array([0.0, 0.0, 650.0])
+    th = 0.08 * (i - views // 2)
+    rot_y = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                      [-np.sin(th), 0, np.cos(th)]])
+    cam_center = center + rot_y @ np.array([0.0, 0.0, -650.0])
+    e = np.eye(4)
+    e[:3, :3] = rot_y.T
+    e[:3, 3] = -rot_y.T @ cam_center
+    return e
+
+
+def write_cam_txt(path, e, k, depth_line):
+    with open(path, "w") as f:
+        f.write("extrinsic\n")
+        for r in range(4):
+            f.write(" ".join(f"{v:.6f}" for v in e[r]) + "\n")
+        f.write("\nintrinsic\n")
+        for r in range(3):
+            f.write(" ".join(f"{v:.6f}" for v in k[r]) + "\n")
+        f.write(f"\n{depth_line}\n")
+
+
+def write_pair_txt(path, views):
+    """Every other view for every view, nearest first, scores > 0.1."""
+    with open(path, "w") as f:
+        f.write(f"{views}\n")
+        for i in range(views):
+            others = sorted((j for j in range(views) if j != i),
+                            key=lambda j: abs(j - i))
+            f.write(f"{i}\n{len(others)} " + " ".join(
+                f"{j} {10.0 / abs(j - i):.2f}" for j in others) + "\n")
+
+
+def blocky_image(rng, hh, ww, block=16):
+    """A random uint8 [hh, ww, 3] image of block x block squares."""
+    import numpy as np
+
+    low = rng.randint(0, 256, (hh // block, ww // block, 3)).astype(np.uint8)
+    return np.kron(low, np.ones((block, block, 1), np.uint8))
+
+
 def make_dtu_scan(root, scan, views, hh, ww, seed=0):
     """A DTU-layout scan: scanN/images/*.npy (uint8 serving caches at the
     eval size), cams_1/*_cam.txt and a pair.txt that lists, for every view,
-    the other views with scores > 0.1. The cameras sit on a gentle arc
-    (4.6 degrees apart) 650 mm from a point in front of view 0, with
-    DTU-like intrinsics and the DTU depth range 425-935 mm."""
+    the other views with scores > 0.1. The cameras sit on arc_extrinsic's
+    arc, with DTU-like intrinsics and the DTU depth range 425-935 mm."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -980,33 +1050,11 @@ def make_dtu_scan(root, scan, views, hh, ww, seed=0):
     (base / "cams_1").mkdir()
     k = np.array([[2892.3, 0.0, ww / 2 + 23.0], [0.0, 2883.2, hh / 2 - 8.0],
                   [0.0, 0.0, 1.0]], np.float32)
-    center = np.array([0.0, 0.0, 650.0])
     for i in range(views):
-        th = 0.08 * (i - views // 2)
-        rot_y = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
-                          [-np.sin(th), 0, np.cos(th)]])
-        cam_center = center + rot_y @ np.array([0.0, 0.0, -650.0])
-        e = np.eye(4)
-        e[:3, :3] = rot_y.T
-        e[:3, 3] = -rot_y.T @ cam_center
-        low = rng.randint(0, 256, (hh // 16, ww // 16, 3)).astype(np.uint8)
-        img = np.kron(low, np.ones((16, 16, 1), np.uint8))
-        np.save(base / "images" / f"{i:08d}.npy", img)
-        with open(base / "cams_1" / f"{i:08d}_cam.txt", "w") as f:
-            f.write("extrinsic\n")
-            for r in range(4):
-                f.write(" ".join(f"{v:.6f}" for v in e[r]) + "\n")
-            f.write("\nintrinsic\n")
-            for r in range(3):
-                f.write(" ".join(f"{v:.6f}" for v in k[r]) + "\n")
-            f.write("\n425.0 2.5 192 935.0\n")
-    with open(base / "pair.txt", "w") as f:
-        f.write(f"{views}\n")
-        for i in range(views):
-            others = sorted((j for j in range(views) if j != i),
-                            key=lambda j: abs(j - i))
-            f.write(f"{i}\n{len(others)} " + " ".join(
-                f"{j} {10.0 / abs(j - i):.2f}" for j in others) + "\n")
+        np.save(base / "images" / f"{i:08d}.npy", blocky_image(rng, hh, ww))
+        write_cam_txt(base / "cams_1" / f"{i:08d}_cam.txt",
+                      arc_extrinsic(i, views), k, "425.0 2.5 192 935.0")
+    write_pair_txt(base / "pair.txt", views)
 
 
 class Spans:
@@ -1229,6 +1277,462 @@ def phase_export(run):
         acc_rel_card_cpu=f"{abs(m_cuda['acc_mean'] - m_cpu['acc_mean']) / abs(m_cpu['acc_mean']):.3e}")
 
 
+def make_dtu_train_tree(root, scan, views, seed=0):
+    """The DTU training layout (MVSNet's preprocessing) for one scan:
+    Rectified/{scan}_train/rect_{v+1:03}_{light}_r5000.png (7 lights,
+    512x640 uint8), Depths_raw/{scan}/depth_map_{v:04}.pfm and
+    depth_visual_{v:04}.png at 1200x1600, Cameras/pair.txt, and
+    Cameras/train/{v:08}_cam.txt with DTU's 1/4-resolution intrinsics of
+    the 512x640 crop and its depth line 'depth_min interval' (425 mm, 2.5
+    mm). The cameras sit on arc_extrinsic's arc; the GT depth is a plane
+    slanting from 550 to 750 mm across the image; the visibility is 255
+    but for a band along the top."""
+    import numpy as np
+    from PIL import Image
+
+    from diffmvs_tpu_torch.data.io import save_pfm
+
+    rng = np.random.RandomState(seed)
+    (root / "Cameras" / "train").mkdir(parents=True)
+    (root / f"Rectified/{scan}_train").mkdir(parents=True)
+    (root / f"Depths_raw/{scan}").mkdir(parents=True)
+    k = np.array([[361.54, 0.0, 82.90], [0.0, 360.40, 66.38],
+                  [0.0, 0.0, 1.0]])
+    depth = np.broadcast_to(np.linspace(550.0, 750.0, 1600, dtype=np.float32),
+                            (1200, 1600))
+    vis = np.full((1200, 1600), 255, np.uint8)
+    vis[:160] = 0
+    for i in range(views):
+        write_cam_txt(root / "Cameras" / "train" / f"{i:08d}_cam.txt",
+                      arc_extrinsic(i, views), k, "425.0 2.5")
+        for light in range(7):
+            Image.fromarray(blocky_image(rng, 512, 640)).save(
+                root / f"Rectified/{scan}_train" /
+                f"rect_{i + 1:0>3}_{light}_r5000.png")
+        save_pfm(str(root / f"Depths_raw/{scan}/depth_map_{i:0>4}.pfm"),
+                 np.ascontiguousarray(depth))
+        Image.fromarray(vis).save(
+            root / f"Depths_raw/{scan}/depth_visual_{i:0>4}.png")
+    write_pair_txt(root / "Cameras" / "pair.txt", views)
+
+
+def make_blend_scan(root, scan, views, hh, ww, seed=0):
+    """A BlendedMVS-layout scan: blended_images/*.jpg, rendered_depth_maps/
+    *.pfm (a plane slanting from 600 to 700 mm) and cams/ with full-
+    resolution intrinsics, the depth line 'min interval planes max' and
+    pair.txt; the cameras on arc_extrinsic's arc."""
+    import numpy as np
+    from PIL import Image
+
+    from diffmvs_tpu_torch.data.io import save_pfm
+
+    rng = np.random.RandomState(seed)
+    base = root / scan
+    for sub in ("blended_images", "cams", "rendered_depth_maps"):
+        (base / sub).mkdir(parents=True)
+    k = np.array([[1.2 * ww, 0.0, ww / 2], [0.0, 1.2 * ww, hh / 2],
+                  [0.0, 0.0, 1.0]])
+    depth = np.broadcast_to(np.linspace(600.0, 700.0, ww, dtype=np.float32),
+                            (hh, ww))
+    for i in range(views):
+        Image.fromarray(blocky_image(rng, hh, ww)).save(
+            base / "blended_images" / f"{i:08d}.jpg", quality=90)
+        write_cam_txt(base / "cams" / f"{i:08d}_cam.txt",
+                      arc_extrinsic(i, views), k, "425.0 2.5 192 935.0")
+        save_pfm(str(base / "rendered_depth_maps" / f"{i:08d}.pfm"),
+                 np.ascontiguousarray(depth))
+    write_pair_txt(base / "cams" / "pair.txt", views)
+
+
+class StepMarks:
+    """Patches train/loop's train_step and save_images for a phase: for
+    every step its host-clock start and end (the card synchronized at
+    both), its K1 / K2 launches and the host ms of the images the loop
+    saved after it; close() restores both."""
+
+    def __init__(self):
+        from diffmvs_tpu_torch.ops import warp_corr
+        from diffmvs_tpu_torch.train import loop
+
+        self.loop, self.fn, self.steps = loop, loop.train_step, []
+        self.save = loop.save_images
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            k1, k2, t0 = (warp_corr.launches, warp_corr.bwd_launches,
+                          time.perf_counter())
+            out = self.fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.steps.append(dict(
+                start=t0, end=time.perf_counter(), images_ms=0.0,
+                k1=warp_corr.launches - k1, k2=warp_corr.bwd_launches - k2))
+            return out
+
+        def save_images(*args, **kwargs):
+            t0 = time.perf_counter()
+            self.save(*args, **kwargs)
+            self.steps[-1]["images_ms"] += 1e3 * (time.perf_counter() - t0)
+
+        loop.train_step = timed
+        loop.save_images = save_images
+
+    def close(self):
+        self.loop.train_step = self.fn
+        self.loop.save_images = self.save
+        return self.steps
+
+
+def train_cli_run(argv, b):
+    """cli.train.main(argv) with StepMarks; checks 28 K1 and 28 K2
+    launches every step. Returns (main's result, the steps, samples/s
+    after the first step, the host gaps between steps in ms: the loader's
+    wait and the loop's logging, and of those the ms of the images the
+    loop saved in each)."""
+    from diffmvs_tpu_torch.cli import train as cli_train
+
+    marks = StepMarks()
+    try:
+        res = cli_train.main(argv)
+    finally:
+        steps = marks.close()
+    for i, st in enumerate(steps):
+        check((st["k1"], st["k2"]) == (28, 28),
+              f"step {i}: {st['k1']} K1 / {st['k2']} K2 launches, not 28 / 28")
+    rate = (b * (len(steps) - 1) / (steps[-1]["end"] - steps[0]["end"])
+            if len(steps) > 1 else float("nan"))
+    gaps = [1e3 * (cur["start"] - prev["end"])
+            for prev, cur in zip(steps, steps[1:])]
+    return res, steps, rate, gaps, [st["images_ms"] for st in steps[:-1]]
+
+
+def ms_list(xs):
+    return repr([round(x, 1) for x in xs])
+
+
+def data_wait_ms(gaps, images):
+    """The mean host gap between steps less the loop's image saving: the
+    loader's wait and the scalar logging."""
+    return statistics.mean(g - i for g, i in zip(gaps, images))
+
+
+def phase_train_cli(run):
+    """The training entry point through the data layer: cli.train.main on a
+    synthetic DTU training scan of 5 views x 7 lights, CasDiffMVS f32,
+    B = 4, 5 views, 512x640, 48/384, 2 loader workers: one epoch (8 steps)
+    and its validation, --resume for the second, then --mode test."""
+    import json
+
+    from diffmvs_tpu_torch.cli import train as cli_train
+    from diffmvs_tpu_torch.config import MODEL_PRESETS, TrainConfig
+    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.train.schedules import make_lr_lambda
+
+    root = REPO / "build" / "chip_smoke_train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_dtu_train_tree(root / "dtu", "scan1", 5)
+    (root / "list.txt").write_text("scan1\n")
+    setup_s = time.perf_counter() - t0
+    logdir = root / "log"
+    b, epochs, steps_per_epoch = 4, 2, 35 // 4
+    base = ["--dataset", "dtu", "--preset", "casdiffmvs", "--trainpath",
+            str(root / "dtu"), "--trainlist", str(root / "list.txt"),
+            "--testlist", str(root / "list.txt"), "--batch_size", str(b),
+            "--trainviews", "5", "--testviews", "5", "--epochs",
+            str(epochs), "--summary_freq", "1", "--logdir", str(logdir),
+            "--device", "cuda", "--seed", "0"]
+
+    torch.cuda.reset_peak_memory_stats()
+    warp_corr.reset_counts()
+    res1, steps1, rate1, gaps1, img1 = train_cli_run(
+        base + ["--workers", "2", "--train_epochs", "1"], b)
+    k1_total, k2_total = warp_corr.launches, warp_corr.bwd_launches
+    peak = torch.cuda.max_memory_allocated()
+    check(len(steps1) == steps_per_epoch, f"{len(steps1)} steps in epoch 0")
+    # 28 K1 launches per validation batch: 5 test views in batches of 4, 1
+    check(k1_total == 28 * steps_per_epoch + 28 * 2 and
+          k2_total == 28 * steps_per_epoch,
+          f"{k1_total} K1 / {k2_total} K2 launches in the first run")
+    check(res1["state"].step == steps_per_epoch, "the step count")
+    res2, steps2, rate2, gaps2, img2 = train_cli_run(
+        base + ["--workers", "2", "--resume"], b)
+    check(res2["state"].step == 2 * steps_per_epoch, "the resumed steps")
+    # the validation alone, its two batches loaded in-process
+    res3 = cli_train.main(base + ["--workers", "0", "--mode", "test",
+                                  "--loadckpt", str(logdir)])
+
+    recs = [json.loads(line) for line in open(logdir / "scalars.jsonl")]
+    train_recs = [r for r in recs if r["mode"] == "train"]
+    check([r["step"] for r in train_recs]
+          == list(range(epochs * steps_per_epoch)),
+          f"train steps logged {[r['step'] for r in train_recs]}")
+    check(all(math.isfinite(r["loss"]) for r in recs), "finite losses")
+    cfg = TrainConfig(model=MODEL_PRESETS["casdiffmvs"], epochs=epochs)
+    lr8 = cfg.lr * make_lr_lambda(cfg, steps_per_epoch)(steps_per_epoch)
+    first = train_recs[steps_per_epoch]
+    check(first["step"] == steps_per_epoch
+          and math.isclose(first["lr"], lr8, rel_tol=1e-12),
+          f"resumed at step {first['step']} lr {first['lr']}, schedule {lr8}")
+    check((logdir / "model_000000.ckpt").exists()
+          and (logdir / "model_000001.ckpt").exists(), "both checkpoints")
+    check(recs[-1]["mode"] == "eval" and res3["eval"] is not None
+          and math.isfinite(res3["eval"]["loss"]), "--mode test")
+    run["train_cli_ckpt"] = logdir / "model_000001.ckpt"
+    log("train_cli", setup_s=f"{setup_s:.1f}", B=b, views=5, hw="512x640",
+        steps=len(steps1) + len(steps2), workers=2,
+        samples_per_s=f"{rate1:.3f}", samples_per_s_resumed=f"{rate2:.3f}",
+        samples_per_s_train_phase=f"{run['train_f32']['samples_per_s']:.3f}",
+        host_gaps_ms=ms_list(gaps1), images_ms=ms_list(img1),
+        host_gaps_ms_resumed=ms_list(gaps2), images_ms_resumed=ms_list(img2),
+        data_wait_ms=f"{data_wait_ms(gaps1, img1):.1f}",
+        data_wait_ms_resumed=f"{data_wait_ms(gaps2, img2):.1f}",
+        first_step_s=f"{steps1[0]['end'] - steps1[0]['start']:.2f}",
+        peak_mem_gib=f"{peak / 2**30:.3f}", k1_per_step=28, k2_per_step=28,
+        losses=repr([round(r["loss"], 4) for r in train_recs]),
+        resumed_step=first["step"], resumed_lr=repr(first["lr"]),
+        eval_loss=f"{res3['eval']['loss']:.4f}")
+
+
+def phase_train_cli_blend(run):
+    """cli.train on a synthetic BlendedMVS scan at 576x768 (its
+    low-resolution image size), B = 2, two steps, starting from the
+    train_cli checkpoint through --loadckpt's strict .ckpt path; loading
+    in-process (two steps: spawning workers would take longer than the
+    steps). Two steps give one interval, so no rate: the steps' times and
+    the gap between them."""
+    from diffmvs_tpu_torch.ops import warp_corr
+
+    root = REPO / "build" / "chip_smoke_train_cli_blend"
+    shutil.rmtree(root, ignore_errors=True)
+    make_blend_scan(root / "blend", "5c1f33f1d33e1f2e4aa6dda4", 5, 576, 768)
+    (root / "list.txt").write_text("5c1f33f1d33e1f2e4aa6dda4\n")
+    b = 2
+    argv = ["--dataset", "blend", "--preset", "casdiffmvs", "--trainpath",
+            str(root / "blend"), "--trainlist", str(root / "list.txt"),
+            "--testlist", str(root / "list.txt"), "--batch_size", str(b),
+            "--trainviews", "5", "--testviews", "5", "--workers", "0",
+            "--epochs", "1", "--summary_freq", "1", "--logdir",
+            str(root / "log"), "--device", "cuda", "--loadckpt",
+            str(run["train_cli_ckpt"])]
+    torch.cuda.reset_peak_memory_stats()
+    warp_corr.reset_counts()
+    res, steps, _, gaps, images = train_cli_run(argv, b)
+    check(len(steps) == 2 and res["state"].step == 2, f"{len(steps)} steps")
+    check((root / "log" / "model_000000.ckpt").exists(), "checkpoint")
+    log("train_cli_blend", B=b, views=5, hw="576x768", steps=len(steps),
+        workers=0,
+        loadckpt=run["train_cli_ckpt"].name,
+        step_ms=ms_list(1e3 * (st["end"] - st["start"]) for st in steps),
+        host_gaps_ms=ms_list(gaps), images_ms=ms_list(images),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        k1_per_step=28, k2_per_step=28)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_ddp(run):
+    """The data-parallel step (SyncBatchNorm, DDP, the global batch's
+    noise) in an NCCL group of one on 127.0.0.1, against the plain step:
+    two steps of the training cell from the same weights, batches and
+    generator seed. Gates: loss rel < 1e-5 and gradient cosine > 0.9999 at
+    both steps; BatchNorm running statistics within 1e-5 (relative to 1 +
+    |stat|) after each step (cuDNN's float32 statistics against
+    SyncBatchNorm's float64 sums)."""
+    import torch.distributed as dist
+
+    from diffmvs_tpu_torch.config import MODEL_PRESETS, TrainConfig
+    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.parallel.distributed import (DataParallel,
+                                                        SyncBatchNorm)
+    from diffmvs_tpu_torch.train.state import create_train_state
+    from diffmvs_tpu_torch.train.step import train_step
+    from diffmvs_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    b, views, hh, ww = 4, 5, 512, 640
+    cfg = TrainConfig(model=MODEL_PRESETS["casdiffmvs"], batch_size=b)
+    batches = [synthetic_train_batch(b, views, hh, ww, 384, seed=i)
+               for i in range(2)]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        res = {}
+        for mode in ("plain", "ddp"):
+            state = create_train_state(cfg, steps_per_epoch=10,
+                                       device="cuda", seed=0)
+            dp = DataParallel(state.model) if mode == "ddp" else None
+            if dp is not None:
+                check(sum(isinstance(m, SyncBatchNorm)
+                          for m in state.model.modules()) > 0, "SyncBN")
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            out = []
+            for batch in batches:
+                warp_corr.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scalars, _ = train_step(state, cfg, batch, gen, dp=dp)
+                torch.cuda.synchronize()
+                out.append(dict(
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    loss=float(scalars["loss"]),
+                    grads=flat_grads(state.model),
+                    launches=(warp_corr.launches, warp_corr.bwd_launches),
+                    stats=torch.cat([v.float().flatten() for k, v in
+                                     state.model.state_dict().items()
+                                     if "running_" in k])))
+            res[mode] = out
+    finally:
+        dist.destroy_process_group()
+    plain, ddp = res["plain"], res["ddp"]
+    rels, coss, stat_errs = [], [], []
+    for i, (p, d) in enumerate(zip(plain, ddp)):
+        check(p["launches"] == d["launches"] == (28, 28),
+              f"step {i}: launches {p['launches']} / {d['launches']}")
+        rels.append(abs(d["loss"] - p["loss"]) / abs(p["loss"]))
+        coss.append(cosine(d["grads"], p["grads"]))
+        stat_errs.append(((d["stats"] - p["stats"]).abs()
+                          / (1.0 + p["stats"].abs())).max().item())
+    log("ddp", world_size=1, backend="nccl", B=b, hw=f"{hh}x{ww}", steps=2,
+        loss_rel=repr([float(f"{r:.3e}") for r in rels]),
+        grad_cosine=repr([round(c, 9) for c in coss]),
+        bn_stats_max_err=repr([float(f"{e:.3e}") for e in stat_errs]),
+        step_ms_plain=repr([round(p["ms"], 1) for p in plain]),
+        step_ms_ddp=repr([round(d["ms"], 1) for d in ddp]),
+        gates="loss_rel<1e-5,cosine>0.9999,bn_stats<1e-5")
+    check(max(rels) < 1e-5, f"ddp loss rel {rels}")
+    check(min(coss) > 0.9999, f"ddp gradient cosine {coss}")
+    check(max(stat_errs) < 1e-5,
+          f"ddp BatchNorm statistics {stat_errs}")
+
+
+def make_sparse_model(root, n_images, hh, ww, n_points, seed=0):
+    """A COLMAP text sparse model: one PINHOLE camera, n_images views on a
+    full circle 650 mm around n_points points in a 200 mm cube (every
+    point seen by every view), and the views as JPEGs of random blocks."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    (root / "sparse").mkdir(parents=True)
+    (root / "images").mkdir()
+    f, cx, cy = 1.2 * ww, ww / 2, hh / 2
+    (root / "sparse" / "cameras.txt").write_text(
+        f"# cameras\n1 PINHOLE {ww} {hh} {f} {f} {cx} {cy}\n")
+    pts = rng.uniform(-100.0, 100.0, (n_points, 3))
+    with open(root / "sparse" / "images.txt", "w") as fh:
+        fh.write("# images\n")
+        for i in range(n_images):
+            th = 2 * np.pi * i / n_images
+            # world-to-camera rotation about y by th, its optical axis
+            # towards the origin: qvec (w, x, y, z)
+            r = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                          [-np.sin(th), 0, np.cos(th)]])
+            center = np.array([650.0 * np.sin(th), 0.0, -650.0 * np.cos(th)])
+            t = -r @ center
+            fh.write(f"{i + 1} {np.cos(th / 2)} 0 {np.sin(th / 2)} 0 "
+                     f"{t[0]} {t[1]} {t[2]} 1 view{i:03d}.jpg\n")
+            cam = pts @ r.T + t
+            uv = cam[:, :2] / cam[:, 2:] * f + [cx, cy]
+            fh.write(" ".join(f"{u:.2f} {v:.2f} {p + 1}"
+                              for p, (u, v) in enumerate(uv)) + "\n")
+            Image.fromarray(blocky_image(rng, hh, ww)).save(
+                root / "images" / f"view{i:03d}.jpg", quality=90)
+    with open(root / "sparse" / "points3D.txt", "w") as fh:
+        fh.write("# points\n")
+        for p in range(n_points):
+            track = " ".join(f"{i + 1} {p}" for i in range(n_images))
+            fh.write(f"{p + 1} {pts[p, 0]:.4f} {pts[p, 1]:.4f} "
+                     f"{pts[p, 2]:.4f} 128 128 128 0.5 {track}\n")
+
+
+def read_pairs(path):
+    with open(path) as f:
+        n = int(f.readline())
+        out = {}
+        for _ in range(n):
+            ref = int(f.readline())
+            toks = f.readline().split()
+            out[ref] = [(int(toks[1 + 2 * i]), float(toks[2 + 2 * i]))
+                        for i in range(int(toks[0]))]
+    return out
+
+
+def phase_colmap(run):
+    """tools.colmap.convert(..., vggt=True) on a synthetic sparse model of
+    49 images at 480x640: the DeiT-S retrieval ViT at its published width
+    (224^2, embed 384, 12 blocks, 6 heads, random weights from seed 0) on
+    the card. Gates: the descriptors against the ViT on the CPU, max abs <
+    1e-4 (TF32 off); cams/ and pair.txt byte-equal to a CPU conversion's."""
+    import numpy as np
+
+    from diffmvs_tpu_torch.tools import colmap
+    from diffmvs_tpu_torch.tools.retrieval import (DistilledViT, ViTConfig,
+                                                   compute_descriptors)
+
+    n_images, hh, ww = 49, 480, 640
+    root = REPO / "build" / "chip_smoke_colmap"
+    shutil.rmtree(root, ignore_errors=True)
+    make_sparse_model(root / "scene", n_images, hh, ww, 200)
+    _, images, _ = colmap.read_model(str(root / "scene" / "sparse"), ".txt")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    colmap.convert(str(root / "scene"), str(root / "cuda"), ".txt",
+                   vggt=True, device="cuda")
+    convert_s = time.perf_counter() - t0
+    desc = {}
+    for device in ("cuda", "cpu"):
+        d = colmap.compute_image_descriptors(str(root / "scene"), images,
+                                             device=device)
+        desc[device] = np.stack([d[k] for k in sorted(d)])
+    err = float(np.abs(desc["cuda"] - desc["cpu"]).max())
+    colmap.convert(str(root / "scene"), str(root / "cpu"), ".txt",
+                   descriptors=dict(zip(sorted(images), desc["cpu"])))
+
+    # the ViT alone on the card, its inputs on the host
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        vit = DistilledViT(ViTConfig()).cuda().eval()
+    x = np.random.RandomState(1).randn(n_images, 224, 224, 3).astype(
+        np.float32)
+    compute_descriptors(vit, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compute_descriptors(vit, x)
+    vit_s = time.perf_counter() - t0
+
+    got, want = (read_pairs(root / d / "pair.txt") for d in ("cuda", "cpu"))
+    check(sorted(got) == sorted(want) == list(range(n_images)),
+          "pair.txt views")
+    order_ok = all([j for j, _ in got[r]] == [j for j, _ in want[r]]
+                   for r in want)
+    score_err = max(abs(a[1] - b[1]) for r in want
+                    for a, b in zip(got[r], want[r]))
+    lines = [(root / d / "pair.txt").read_text().splitlines()
+             for d in ("cuda", "cpu")]
+    differ = sum(a != b for a, b in zip(*lines))
+    cams = {d: {p.name: p.read_bytes() for p in (root / d / "cams").iterdir()}
+            for d in ("cuda", "cpu")}
+    log("colmap", images=n_images, hw=f"{hh}x{ww}", vit="DeiT-S 224 384x12",
+        convert_s=f"{convert_s:.2f}",
+        images_per_s=f"{n_images / convert_s:.2f}",
+        vit_images_per_s=f"{n_images / vit_s:.1f}",
+        desc_max_abs_cuda_vs_cpu=f"{err:.3e}", pair_order_equal=order_ok,
+        pair_score_max_diff=f"{score_err:.1e}", pair_lines_differ=differ,
+        cams_equal=cams["cuda"] == cams["cpu"],
+        gates="desc<1e-4,pair_equal,cams_equal")
+    check(err < 1e-4, f"descriptors CUDA vs CPU {err}")
+    check(order_ok and differ == 0 and len(lines[0]) == len(lines[1]),
+          f"pair.txt CUDA vs CPU: {differ} lines differ")
+    check(cams["cuda"] == cams["cpu"] and len(cams["cpu"]) == n_images,
+          "cams/ CUDA vs CPU")
+
+
 def main():
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1263,7 +1767,9 @@ def main():
            "k2_rows_bf16": {}, "k3_rows": [], "operand_rows": []}
     for phase in (phase_kernel, phase_train_kernel, phase_small, phase_main,
                   phase_main_bf16, phase_train_small, phase_train,
-                  phase_train_bf16, phase_k3_kernel, phase_export):
+                  phase_train_bf16, phase_k3_kernel, phase_export,
+                  phase_train_cli, phase_train_cli_blend, phase_ddp,
+                  phase_colmap):
         phase(run)
 
     kernels = []

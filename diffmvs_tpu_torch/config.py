@@ -6,9 +6,10 @@ kernel selection, s2d layouts, unrolling): the port computes each
 operation once, in NCHW, and the plane-sweep warp always goes through
 ops.correlation.warp_and_correlate. The compute dtype and remat are the
 JAX package's: bfloat16 conv stacks over float32 parameters, and each
-refinement iteration recomputed in the backward pass. TrainConfig leaves
-out the device mesh (dp/sp): data-parallel training is not ported yet.
-EvalConfig and the per-scene fusion tables serve cli/test.py.
+refinement iteration recomputed in the backward pass. TrainConfig keeps
+the JAX package's mesh fields: dp is the data-parallel world size
+(parallel/distributed.py, one process per card under torchrun); sp, the
+width sharding, is not ported and must stay 1. EvalConfig and the per-scene fusion tables serve cli/test.py.
 
 Per-stage hyperparameters are 3-tuples indexed by stage (stage 0 = 1/8-res
 initialization, stage 1 = 1/4-res refinement, stage 2 = 1/2-res
@@ -154,6 +155,12 @@ class TrainConfig:
     save_freq: int = 1
     eval_freq: int = 1
     summary_freq: int = 20
+
+    # data parallelism: dp ranks (-1 = the world size torchrun gives, else
+    # 1), each loading batch_size // dp rows of every global batch; sp
+    # (width sharding) must be 1 (parallel/distributed.resolve_mesh)
+    dp: int = -1
+    sp: int = 1
 
     # gradient accumulation: the batch runs as accum_steps sequential
     # microbatches whose gradients are averaged into ONE optimizer update

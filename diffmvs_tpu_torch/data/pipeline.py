@@ -16,12 +16,27 @@ dataset's __getitem__ (PIL, numpy, the native JPEG loader) and the
 collate: they never touch CUDA. pin_memory=True (the CLI asks for it when
 the device is CUDA) pins each batch in page-locked memory, so its upload
 to the card can run asynchronously.
+
+Two additions to the JAX pipeline:
+  * Worker seeding. The DataLoader draws its workers' base seed from a
+    torch.Generator seeded with `seed`, and each worker seeds Python's
+    `random` (the training datasets' source-view draws) from its own torch
+    seed and its rank, so the draws repeat from run to run. The JAX
+    pipeline's forked workers all inherit the parent's one `random` state
+    instead; with num_workers=0 both draw from the calling process's
+    `random`, so the same random.seed gives the same samples.
+  * The rank split. batch_size is the GLOBAL batch: with world_size W,
+    rank r loads rows [r*B/W, (r+1)*B/W) of each global batch of the one
+    order every rank computes alike (EpochShuffle(seed + epoch)), so the
+    ranks together load exactly the single-process batches.
 """
 
 from __future__ import annotations
 
+import functools
 import multiprocessing as mp
 import os
+import random
 from typing import Sequence
 
 import numpy as np
@@ -72,26 +87,69 @@ class EpochShuffle(Sampler):
         return iter(order.tolist())
 
 
-def _worker_init(_):
+class RankBatches(Sampler):
+    """This rank's rows of each global batch: `order` (a sampler, or
+    range(n)) cut into batches of batch_size (a short last one dropped
+    with drop_last), and of each, rows [rank*b, (rank+1)*b) with
+    b = batch_size // world_size."""
+
+    def __init__(self, order, batch_size: int, drop_last: bool,
+                 rank: int = 0, world_size: int = 1):
+        if batch_size % world_size:
+            raise ValueError(f"batch size {batch_size} does not divide "
+                             f"over {world_size} ranks")
+        if world_size > 1 and not drop_last:
+            raise ValueError("a rank split needs drop_last=True: a short "
+                             "last batch would not divide over the ranks")
+        self.order = order
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.rank = rank
+        self.per_rank = batch_size // world_size
+
+    def __len__(self):
+        n = len(self.order)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        order = list(self.order)
+        lo = self.rank * self.per_rank
+        for i in range(len(self)):
+            rows = order[i * self.batch_size:(i + 1) * self.batch_size]
+            yield rows[lo:lo + self.per_rank]
+
+
+def _worker_init(worker_id, rank=0):
+    """Seeds Python's `random` from the worker's torch seed (drawn from
+    the loader's seeded generator) and the rank."""
     os.environ["OMP_NUM_THREADS"] = "1"
     torch.set_num_threads(1)
+    random.seed(f"{torch.utils.data.get_worker_info().seed}:{rank}")
 
 
 class DataPipeline:
-    """Iterable over collated host batches."""
+    """Iterable over collated host batches (this rank's rows of each
+    global batch)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
-                 num_workers: int = 0, pin_memory: bool = False):
+                 num_workers: int = 0, pin_memory: bool = False,
+                 rank: int = 0, world_size: int = 1):
         kwargs = {}
         if num_workers > 0:
             kwargs = dict(multiprocessing_context=mp.get_context("spawn"),
-                          worker_init_fn=_worker_init)
+                          worker_init_fn=functools.partial(_worker_init,
+                                                           rank=rank))
+        order = (EpochShuffle(len(dataset), seed) if shuffle
+                 else range(len(dataset)))
         self.loader = DataLoader(
-            dataset, batch_size=batch_size,
-            sampler=EpochShuffle(len(dataset), seed) if shuffle else None,
-            drop_last=drop_last, num_workers=num_workers,
-            collate_fn=collate, pin_memory=pin_memory, **kwargs)
+            dataset, batch_sampler=RankBatches(order, batch_size, drop_last,
+                                               rank, world_size),
+            num_workers=num_workers, collate_fn=collate,
+            pin_memory=pin_memory,
+            generator=torch.Generator().manual_seed(seed), **kwargs)
 
     def __len__(self):
         return len(self.loader)

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from diffmvs_tpu_torch.config import ModelConfig
 from diffmvs_tpu_torch.geometry.transforms import depth_to_disp, disp_to_depth
 from diffmvs_tpu_torch.geometry.upsample import upsample_with_mask
-from diffmvs_tpu_torch.models.refine import RefinementStage
+from diffmvs_tpu_torch.models.refine import RefinementStage, draw_t_noise
 from diffmvs_tpu_torch.models.schedule import DiffusionSchedule
 from diffmvs_tpu_torch.models.stages import InitialStage
 from diffmvs_tpu_torch.nn.context import ContextNet
@@ -107,6 +107,23 @@ class CasDiffMVS(nn.Module):
                 remat=cfg.remat,
                 dtype=dt))
         self.hidden_init = nn.ModuleList(hidden_inits)
+
+    def draw_train_overrides(self, b: int, h: int, w: int,
+                             generator: torch.Generator) -> Dict:
+        """{stage_idx: (t [b], noise [b, Hs, Ws])}: what the training
+        forward on b images of h x w draws from `generator`, drawn in its
+        order (refinement stage 1 at 1/4 resolution, then stage 2 at 1/2),
+        on the generator's device. Passed as train_overrides, they make the
+        forward equal to one that draws them itself."""
+        out = {}
+        for s in (1, 2):
+            if self.cfg.stage_iters[s] == 0:
+                continue
+            f = 8 // 2 ** s
+            like = torch.empty((b, h // f, w // f), device=generator.device)
+            block = getattr(self, f"update_block_depth{s + 1}")
+            out[s] = draw_t_noise(block.schedule, like, generator)
+        return out
 
     def forward(self, imgs, proj_matrices, depth_values, depth_gt=None,
                 generator: Optional[torch.Generator] = None,

@@ -33,18 +33,24 @@ def loss_layout(stage_iters: Sequence[int]) -> Tuple[List[int], List[bool]]:
     return stage_id, conf_flag
 
 
-def masked_mean(x, mask):
+def masked_mean(x, mask, den=None):
+    """(x * mask).sum() over den, by default the mask's count (>= 1)."""
     m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp_min(1.0)
+    if den is None:
+        den = m.sum().clamp_min(1.0)
+    return (x * m).sum() / den
 
 
 def compute_inverse_loss(depths, confs, depth_gt, mask, depth_values,
-                         stage_iters, loss_rate=0.9, conf_weight=0.05):
+                         stage_iters, loss_rate=0.9, conf_weight=0.05,
+                         denominators=None):
     """
     depths: list of [B, Hs, Ws] metric depth predictions (model output).
     confs: list of [B, Hs, Ws] confidences for diffusion iterations.
     depth_gt / mask: {stage1..4: [B, Hs, Ws]}.
     depth_values: [B, ND] inverse-depth linspace.
+    denominators: optional {stage1..4: scalar} replacing each mask's count
+      in the masked means (the data-parallel step's global counts).
     Returns (total_loss, {"l0".."lN": plain masked L1 per entry}).
     """
     stage_id, conf_flag = loss_layout(stage_iters)
@@ -69,6 +75,8 @@ def compute_inverse_loss(depths, confs, depth_gt, mask, depth_values,
         gt = depth_to_disp(gt, depth_min, depth_max)
 
         m = mask[f"stage{stage_id[i]}"] > 0.5
+        den = (None if denominators is None
+               else denominators[f"stage{stage_id[i]}"])
         abs_err = (est - gt).abs()
 
         if conf_flag[i]:
@@ -76,11 +84,11 @@ def compute_inverse_loss(depths, confs, depth_gt, mask, depth_values,
             conf_iter += 1
             uncertainty = (1.0 - confidence).clamp_min(1e-6)
             term = abs_err / uncertainty + conf_weight * torch.log(uncertainty)
-            loss_i = masked_mean(term, m)
+            loss_i = masked_mean(term, m, den)
         else:
-            loss_i = masked_mean(abs_err, m)
+            loss_i = masked_mean(abs_err, m, den)
 
-        loss_dict[f"l{i}"] = masked_mean(abs_err.detach(), m)
+        loss_dict[f"l{i}"] = masked_mean(abs_err.detach(), m, den)
         total = total + (loss_rate ** (n - i - 1)) * loss_i
 
     return total, loss_dict

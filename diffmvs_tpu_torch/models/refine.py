@@ -44,6 +44,15 @@ def noise_like(generator: Optional[torch.Generator], x, scale: float):
                                dtype=x.dtype)
 
 
+def draw_t_noise(schedule: DiffusionSchedule, like, generator):
+    """The training branch's draw from `generator`, in its order: the
+    timesteps [B], then the noise shaped like `like` [B, H, W] (zeros, and
+    no draw, where the schedule's noise scale is 0)."""
+    t = torch.randint(0, schedule.timesteps, (like.shape[0],),
+                      generator=generator, device=like.device)
+    return t, noise_like(generator, like, schedule.scale)
+
+
 class RefineIteration(nn.Module):
     """One GRU-UNet denoising iteration."""
 
@@ -150,7 +159,6 @@ class RefinementStage(RefineIteration):
           `generator` (the seam that lets two implementations take the same
           timesteps and noise).
         """
-        b = inv_depth.shape[0]
         dev = inv_depth.device
         sched = self.schedule
         gt_inv_depth = torch.where(torch.isinf(gt_inv_depth), inv_init_depth,
@@ -161,9 +169,7 @@ class RefinementStage(RefineIteration):
             noise = torch.as_tensor(t_noise[1], dtype=gt_delta.dtype,
                                     device=dev)
         elif generator is not None:
-            t = torch.randint(0, sched.timesteps, (b,), generator=generator,
-                              device=dev)
-            noise = noise_like(generator, gt_delta, sched.scale)
+            t, noise = draw_t_noise(sched, gt_delta, generator)
         else:
             raise ValueError("the training branch draws its timesteps and "
                              "noise from a generator: pass one, or t_noise")

@@ -64,7 +64,9 @@ def restore_checkpoint(logdir: str, state, epoch: Optional[int] = None):
 def load_weights_only(path_or_logdir: str, state):
     """Load model weights from a checkpoint file (or the latest one in a
     logdir) into state.model with strict=False, keeping the optimizer
-    fresh. The file is a pickle: load only checkpoints you trust."""
+    fresh, and print the keys that strict=False let through: the model's
+    keys the file lacks and the file's keys the model lacks. The file is
+    a pickle: load only checkpoints you trust."""
     path = path_or_logdir
     if os.path.isdir(path):
         epoch = latest_epoch(path)
@@ -72,5 +74,10 @@ def load_weights_only(path_or_logdir: str, state):
             raise FileNotFoundError(f"no checkpoints in {path}")
         path = checkpoint_path(path, epoch)
     ckpt = torch.load(path, map_location=state.device, weights_only=False)
-    state.model.load_state_dict(ckpt.get("model", ckpt), strict=False)
+    res = state.model.load_state_dict(ckpt.get("model", ckpt), strict=False)
+    for what, keys in (("missing", res.missing_keys),
+                       ("unexpected", res.unexpected_keys)):
+        if keys:
+            print(f"load_weights_only {path}: {len(keys)} {what} key(s): "
+                  f"{', '.join(keys)}")
     return state

@@ -4,13 +4,24 @@ Counterpart of diffmvs_tpu/train/step.py (make_train_step,
 make_eval_step): the loss, its gradients, the clip and the AdamW step,
 and the init/final absolute-depth-error metrics. Steps return device
 tensors and never wait for the host; the loop fetches scalars when it
-logs them. Data-parallel training (the JAX package's shard_map step) is
-not ported yet.
+logs them.
+
+Data parallelism (train_step's dp, parallel/distributed.DataParallel)
+follows the JAX package's default GSPMD step, whose global batch is
+sharded over devices: every rank draws the timesteps and noise of the
+global batch from the one seeded generator and keeps its rows, each
+rank's masked means divide by the global batch's mask counts (times the
+world size, which DDP's mean of the gradients divides out), BatchNorm
+syncs over the global batch, and the scalars are averaged over the ranks
+(pmean). A step then equals the single-process step on the global batch.
+With accum_steps > 1 each rank splits its own rows into microbatches.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import contextlib
 
 import numpy as np
 import torch
@@ -38,7 +49,8 @@ def _split(tree, parts: int, i: int):
     return tree[i * n:(i + 1) * n]
 
 
-def forward_loss(model, cfg, batch, generator=None, train_overrides=None):
+def forward_loss(model, cfg, batch, generator=None, train_overrides=None,
+                 denominators=None):
     """Training-branch forward + loss. Returns (loss, loss_dict, outputs)."""
     outputs = model(batch["imgs"], batch["proj_matrices"],
                     batch["depth_values"], depth_gt=batch["depth"],
@@ -47,18 +59,32 @@ def forward_loss(model, cfg, batch, generator=None, train_overrides=None):
     loss, loss_dict = compute_inverse_loss(
         outputs["depth"], outputs["conf"], batch["depth"], batch["mask"],
         batch["depth_values"], cfg.model.stage_iters, cfg.loss_rate,
-        cfg.conf_weight)
+        cfg.conf_weight, denominators)
     return loss, loss_dict, outputs
+
+
+def global_denominators(mask, dp):
+    """{stage: the global batch's mask count (>= 1) / world size}: each
+    rank's masked sums over these are the world size times its share of
+    the global masked means, so the ranks' mean is the global loss."""
+    keys = sorted(mask)
+    counts = dp.sum(torch.stack([(mask[k] > 0.5).sum().float()
+                                 for k in keys]))
+    return {k: c.clamp_min(1.0) / dp.world_size
+            for k, c in zip(keys, counts.unbind(0))}
 
 
 def compute_gradients(model, cfg, batch,
                       generator: Optional[torch.Generator] = None,
-                      train_overrides: Optional[Dict] = None):
+                      train_overrides: Optional[Dict] = None, dp=None):
     """Loss and gradients of one batch (on the model's device), left in
     the parameters' .grad. cfg.accum_steps > 1 splits the batch into that
     many sequential microbatches (one microbatch of activations alive at a
     time) and averages their gradients; BatchNorm statistics update per
-    microbatch. train_overrides, if given, is split the same way.
+    microbatch. train_overrides, if given, is split the same way. With
+    dp (a DataParallel whose `module` is `model`), the masked means divide
+    by the global counts and the gradients are averaged over the ranks
+    once, after the last microbatch.
 
     Returns (loss, loss_dict, outputs, batch): means over the microbatches
     for the first two, the last microbatch's for the others.
@@ -71,8 +97,12 @@ def compute_gradients(model, cfg, batch,
         mb = batch if accum == 1 else _split(batch, accum, i)
         ov = (train_overrides if accum == 1 or train_overrides is None
               else _split(train_overrides, accum, i))
-        loss, loss_dict, outputs = forward_loss(model, cfg, mb, generator, ov)
-        (loss / accum).backward()
+        dens = None if dp is None else global_denominators(mb["mask"], dp)
+        sync = (dp is None or i == accum - 1)
+        with contextlib.nullcontext() if sync else model.no_sync():
+            loss, loss_dict, outputs = forward_loss(model, cfg, mb,
+                                                    generator, ov, dens)
+            (loss / accum).backward()
         loss_sum = loss_sum + loss.detach()
         for k, v in loss_dict.items():
             dict_sum[k] = dict_sum.get(k, 0.0) + v
@@ -97,19 +127,34 @@ def _scalars(loss, loss_dict, outputs, batch):
 
 def train_step(state, cfg, batch,
                generator: Optional[torch.Generator] = None,
-               train_overrides: Optional[Dict] = None):
+               train_overrides: Optional[Dict] = None, dp=None):
     """One optimizer update of `state` (in place) from `batch`.
 
+    dp: a parallel.distributed.DataParallel over state.model; `batch` is
+    then this rank's rows of the global batch, and train_overrides (or,
+    without them, the draw from `generator`) the global batch's.
+
     Returns (scalars, images): dicts of device tensors. scalars adds the
-    gradient norm before clipping ("grad_norm") to the reference's set.
+    gradient norm before clipping ("grad_norm") to the reference's set;
+    under dp they are the means over the ranks, images this rank's.
     """
     batch = batch_to_device(batch, state.device)
+    model = state.model
+    if dp is not None:
+        model = dp.module
+        b, _, h, w = batch["imgs"].shape[:4]
+        if train_overrides is None:
+            train_overrides = state.model.draw_train_overrides(
+                b * dp.world_size, h, w, generator)
+        train_overrides = _split(train_overrides, dp.world_size, dp.rank)
     loss, loss_dict, outputs, mb = compute_gradients(
-        state.model, cfg, batch, generator, train_overrides)
+        model, cfg, batch, generator, train_overrides, dp)
     grad_norm = state.apply_gradients(cfg.grad_clip)
     with torch.no_grad():
         scalars = _scalars(loss, loss_dict, outputs, mb)
         scalars["grad_norm"] = grad_norm
+        if dp is not None:
+            scalars = dp.mean(scalars)
         depth_est = outputs["depth"][-1].detach()
         gt, mask = mb["depth"]["stage4"], mb["mask"]["stage4"]
         images = {

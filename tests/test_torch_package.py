@@ -113,7 +113,13 @@ def test_import_loads_no_jax():
         "diffmvs_tpu_torch.data.pipeline, diffmvs_tpu_torch.fusion.fuse, "
         "diffmvs_tpu_torch.fusion.metrics, diffmvs_tpu_torch.cli.test, "
         "diffmvs_tpu_torch.cli.eval_dtu, "
-        "diffmvs_tpu_torch.tools.kernel_times\n"
+        "diffmvs_tpu_torch.tools.kernel_times, "
+        "diffmvs_tpu_torch.data.dtu, diffmvs_tpu_torch.data.blend, "
+        "diffmvs_tpu_torch.data.registry, "
+        "diffmvs_tpu_torch.data.scene_lists, diffmvs_tpu_torch.cli.train, "
+        "diffmvs_tpu_torch.parallel.distributed, "
+        "diffmvs_tpu_torch.utils.profiling, "
+        "diffmvs_tpu_torch.tools.retrieval, diffmvs_tpu_torch.tools.colmap\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'diffmvs_tpu')]\n"
         "assert not bad, bad\n")

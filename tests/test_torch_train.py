@@ -84,10 +84,10 @@ def _small_train_cfg(**kw):
 # ---------------------------------------------------------------------------
 
 def test_train_config_matches_jax():
-    """Every TrainConfig field of the JAX package but the device mesh
-    (dp/sp), with the same defaults."""
+    """Every TrainConfig field of the JAX package, the device mesh (dp/sp)
+    included, with the same defaults."""
     jf = {f.name: f.default for f in dataclasses.fields(JaxTrainConfig)
-          if f.name not in ("model", "dp", "sp")}
+          if f.name != "model"}
     tf = {f.name: f.default for f in dataclasses.fields(tconfig.TrainConfig)
           if f.name != "model"}
     assert tf == jf
