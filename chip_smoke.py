@@ -16,7 +16,9 @@ Phases (one line each; any failure exits non-zero):
                      cold_ms: L2 flushed) and the bound; batched odd sizes
                      (N=2) through every load width, misaligned bases, G =
                      1, 8 and above 256 (launches over group slices),
-                     degenerate depths
+                     degenerate depths; the width shards' shapes (rank 1
+                     of 2 at x_off = W/2, the source twice as wide as
+                     ref), f32 and bf16, timed as the others
   4. train_kernel -- K2 against autograd of the plain version at the
                      training shapes (B=4 at 512x640: the sweep and the two
                      refinement stages) with degenerate depths, f32 and
@@ -24,7 +26,9 @@ Phases (one line each; any failure exits non-zero):
                      vector and scalar paths, C / K above 256 (launches
                      over channel slices) and depths that jump by decades
                      from plane to plane, in both dtypes; times as in
-                     kernel, bound, global atomic counts
+                     kernel, bound, global atomic counts; the width
+                     shards' training shapes (x_off = W/2, d_src full
+                     width), f32 and bf16
   5. small        -- the port on CUDA against the port on the CPU (the path
                      the CPU tests hold against JAX), same weights, 64x96,
                      f32 and bf16 compute
@@ -96,15 +100,30 @@ Phases (one line each; any failure exits non-zero):
                      against the plain step, two steps of the training cell:
                      loss rel < 1e-5, gradient cosine > 0.9999, BatchNorm
                      running statistics within 1e-5 after each step
- 16. colmap       -- tools.colmap.convert(..., vggt=True) on a synthetic
+ 16. sp           -- width sharding, sp = 2: two ranks on the one card in a
+                     gloo group (NCCL takes one rank per card), spawned
+                     with a timeout and killed on it; gloo's all_gather
+                     and all_reduce on CUDA tensors checked first. The
+                     sharded export forward at main's configuration (800
+                     columns a rank) in f32 and bf16 against the
+                     unsharded forward with the same weights (f32: final
+                     depth mean rel < 1e-4, confidences max abs < 1e-3;
+                     bf16: depth mean rel < 5e-2), 28 K1 launches a
+                     request a rank; two training-cell steps on dp = 1 x
+                     sp = 2 against the plain step (loss rel < 1e-4,
+                     gradient cosine > 0.9999, BatchNorm statistics <
+                     1e-5), 28 K1 + 28 K2 a step a rank; each rank's peak
+                     memory and times beside the unsharded ones
+ 17. colmap       -- tools.colmap.convert(..., vggt=True) on a synthetic
                      49-image sparse model with the DeiT-S retrieval ViT
                      (random weights from seed 0) on the card: descriptors
                      against the CPU's (max abs < 1e-4), cams/ and
                      pair.txt equal to a CPU conversion's; images/s
 Then a JSON line of per-kernel numbers (K1's launches from main and
-main_bf16, K2's from train and train_bf16, K3's, the operand and the
-projection kernel's from the k3_kernel entry calls), the nvidia-smi line,
-and last {"ok": true, "device": {...}}.
+main_bf16, K2's from train and train_bf16, at the shards' shapes both
+from sp's rank 0, K3's, the operand and the projection kernel's from the
+k3_kernel entry calls), the nvidia-smi line, and last {"ok": true,
+"device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
 """
@@ -223,6 +242,44 @@ def phase_kernel(run):
         run["k1_rows"][(d, h, w, c)] = (name, row["f32"])
         run["k1_rows_bf16"][(d, h, w, c)] = (name, row["bf16"])
 
+    # width shards (the sp phase's shapes): rank 1 of 2, its depths and ref
+    # of columns [W/2, W) at offset x_off = W/2, the source twice as wide
+    for name in ("sweep", "stage2", "stage3"):
+        stage, d, c, s = shapes[name]
+        sp, rp, depth, h, w, x_off = shard_inputs(
+            name, stage, d, s, 1, hh, ww, projs, views, dev, gen)
+        src32 = torch.randn(1, h, 2 * w, c, device=dev, generator=gen)
+        ref32 = torch.randn(1, h, w, c, device=dev, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            src, ref = src32.to(dt), ref32.to(dt)
+            with torch.inference_mode():
+                got = warp_corr.warp_corr(src, ref, sp, rp, depth, 4,
+                                          x_off=x_off)
+                want = warp_and_correlate_plain(src.float(), ref.float(), sp,
+                                                rp, depth, 4, x_off)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, **CORR_TOL,
+                                           msg=lambda m: f"{name} sp: {m}")
+                err = (got - want).abs().max().item()
+                rt = warp_corr.projection_scalars(sp, rp)
+                t = timings(lambda: warp_corr.warp_corr_rt(
+                    src, ref, rt, depth, 4, x_off))
+                plain_ms = cuda_ms(lambda: warp_and_correlate_plain(
+                    src.float(), ref.float(), sp, rp, depth, 4, x_off))
+            bound_ms, bound_by = warp_bound(1, d, h, w, h, 2 * w, c, 4,
+                                            src.element_size())
+            log("kernel", shape=f"{name}:sp2", dtype=tag, D=d, C=c,
+                hw=f"{h}x{w}", src_hw=f"{h}x{2 * w}", x_off=x_off,
+                max_abs_err=f"{err:.3e}", ms=f"{t['ms']:.4f}",
+                card_ms=f"{t['card_ms']:.4f}", cold_ms=f"{t['cold_ms']:.4f}",
+                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+                bound_by=bound_by)
+            rows = run["k1_rows_sp" if tag == "f32" else "k1_rows_sp_bf16"]
+            rows[(d, h, w, c)] = (f"{name}:sp2", dict(
+                max_abs_err=err, ms=t["ms"], card_ms=t["card_ms"],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+
     # batched samples with their own projections, odd sizes (ragged
     # tiles), degenerate depths in the first row, through every load width
     # (ODD_CASES)
@@ -248,6 +305,16 @@ def phase_kernel(run):
             errs.append(f"{tag}={(got - want).abs().max().item():.1e}")
     log("kernel", shape="batched_odd", N=n, D=d, hw=f"{h}x{w}",
         src_hw=f"{h + 3}x{w - 2}", max_abs_err=",".join(errs))
+
+
+def shard_inputs(name, stage, d, s, n, hh, ww, projs, views, dev, gen):
+    """(src / ref pairs of the widest baseline, depths, h, w, x_off) of
+    rank 1 of 2 width shards of a map at 1/s of hh x ww: w = ww / (2 s)
+    columns at offset x_off = w."""
+    h, w = hh // s, ww // (2 * s)
+    pairs = torch.from_numpy(projs[stage]).to(dev)
+    return (pairs[:, views - 1], pairs[:, 0],
+            make_depth(name, n, d, h, w, dev, gen), h, w, w)
 
 
 def odd_depth(n, d, h, w, dev, gen):
@@ -344,6 +411,58 @@ def phase_train_kernel(run):
                 in_image_samples=f"{inside / samples:.3f}")
             rows = run["k2_rows" if tag == "f32" else "k2_rows_bf16"]
             rows[(d, h, w, c)] = (name, dict(
+                max_abs_err=err, ms=t["ms"], card_ms=t["card_ms"],
+                cold_ms=t["cold_ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by))
+
+    # width shards (the sp phase's training shapes): rank 1 of 2, the
+    # source twice as wide as ref, d_src full width
+    for name, (stage, d, c, s) in shapes.items():
+        sp, rp, depth, h, w, x_off = shard_inputs(
+            name, stage, d, s, n, hh, ww, projs, views, dev, gen)
+        src32 = torch.randn(n, h, 2 * w, c, device=dev, generator=gen)
+        ref32 = torch.randn(n, h, w, c, device=dev, generator=gen)
+        g = torch.randn(n, 4, d, h, w, device=dev, generator=gen)
+        g_out = g.permute(0, 2, 3, 4, 1)
+        _, inside, corners = sample_counts(sp, rp, depth, h, 2 * w, x_off)
+        rt = warp_corr.projection_scalars(sp, rp)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            tol = CORR_TOL if dt == torch.float32 else BF16_GRAD_TOL
+            src, ref = src32.to(dt), ref32.to(dt)
+            want = grads_of(lambda a, b: warp_and_correlate_plain(
+                a, b, sp, rp, depth, 4, x_off), src, ref, g_out)
+            got = grads_of(lambda a, b: warp_corr.warp_corr(
+                a, b, sp, rp, depth, 4, x_off=x_off), src, ref, g_out)
+            torch.cuda.synchronize()
+            for k, wnt, what in zip(got, want, ("d_src", "d_ref")):
+                check(k.dtype == dt and k.shape == wnt.shape,
+                      f"{name} sp {tag} {what} {k.dtype} {tuple(k.shape)}")
+                torch.testing.assert_close(
+                    k.float(), wnt.float(), **tol,
+                    msg=lambda m: f"{name} sp {tag} {what}: {m}")
+            err = max((k.float() - wnt.float()).abs().max().item()
+                      for k, wnt in zip(got, want))
+            t = timings(lambda: warp_corr.warp_corr_backward(
+                src, ref, rt, depth, g, 4, x_off))
+            src_p = src.detach().requires_grad_()
+            ref_p = ref.detach().requires_grad_()
+            out_p = warp_and_correlate_plain(src_p, ref_p, sp, rp, depth, 4,
+                                             x_off)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                out_p, (src_p, ref_p), g_out, retain_graph=True))
+            del out_p
+            bound_ms, bound_by = bwd_bound(n, d, h, w, h, 2 * w, c, 4,
+                                           inside, corners,
+                                           src.element_size())
+            log("train_kernel", shape=f"{name}:sp2", dtype=tag, N=n, D=d,
+                C=c, hw=f"{h}x{w}", src_hw=f"{h}x{2 * w}", x_off=x_off,
+                max_abs_err=f"{err:.3e}", ms=f"{t['ms']:.4f}",
+                card_ms=f"{t['card_ms']:.4f}", cold_ms=f"{t['cold_ms']:.4f}",
+                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+                bound_by=bound_by)
+            rows = run["k2_rows_sp" if tag == "f32" else "k2_rows_sp_bf16"]
+            rows[(d, h, w, c)] = (f"{name}:sp2", dict(
                 max_abs_err=err, ms=t["ms"], card_ms=t["card_ms"],
                 cold_ms=t["cold_ms"], plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by))
@@ -1610,6 +1729,285 @@ def phase_ddp(run):
           f"ddp BatchNorm statistics {stat_errs}")
 
 
+SP_TIMEOUT_S = 600
+
+
+def sp_collectives(space, dev):
+    """The collectives width sharding uses, on CUDA tensors in the gloo
+    group: all_gather of float32, bfloat16 and int64, all_reduce of
+    float32 and float64. Returns their names; raises on a wrong value."""
+    from diffmvs_tpu_torch.parallel import spatial
+
+    r = space.rank
+    done = []
+    for dt in (torch.float32, torch.bfloat16, torch.int64):
+        parts = spatial.all_gather(torch.full((3, 5), r + 1, dtype=dt,
+                                              device=dev), space)
+        check(all(bool((p == i + 1).all()) and p.is_cuda
+                  for i, p in enumerate(parts)), f"all_gather {dt}")
+        done.append(f"all_gather:{str(dt)[6:]}")
+    for dt in (torch.float32, torch.float64):
+        t = spatial.all_reduce(torch.full((7,), r + 1.0, dtype=dt,
+                                          device=dev), space)
+        check(bool((t == 3.0).all()) and t.is_cuda, f"all_reduce {dt}")
+        done.append(f"all_reduce:{str(dt)[6:]}")
+    return done
+
+
+def sp_serve(space, dtype, gate, lead):
+    """The sharded export forward at the main-path configuration (DTU
+    size, 5 views, 48/384, B = 1) against the unsharded one on lead."""
+    import torch.distributed as dist
+
+    from diffmvs_tpu_torch.api import DepthRunner
+    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.parallel import spatial
+    from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
+
+    hh, ww, views = 1152, 1600, 5
+    imgs, projs, dv = synthetic_inputs(1, views, hh, ww, 384, seed=0)
+    kw = dict(device="cuda", seed=0, numdepth_initial=48, numdepth=384,
+              compute_dtype=dtype)
+    runner = DepthRunner.from_random("casdiffmvs", **kw)
+    spatial.shard_width(runner.model, space)
+    local = spatial.column_slice({"imgs": imgs}, space.rank,
+                                 space.size)["imgs"]
+    torch.cuda.reset_peak_memory_stats()
+    warp_corr.reset_counts()
+    # the collectives of the sharded requests, counted
+    calls = {"all_gather": 0, "all_reduce": 0}
+    real = {k: getattr(spatial, k) for k in calls}
+
+    def counted(name):
+        def fn(*args):
+            calls[name] += 1
+            return real[name](*args)
+        return fn
+
+    req_ms = []
+    try:
+        for k in calls:
+            setattr(spatial, k, counted(k))
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth, confs = runner(local, projs, dv)
+            torch.cuda.synchronize()
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for k, fn in real.items():
+            setattr(spatial, k, fn)
+    out = dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               ms=statistics.mean(req_ms[1:]), req_ms=req_ms,
+               collectives={k: v // 3 for k, v in calls.items()},
+               k1=warp_corr.launches,
+               k1_by_shape={str(k): v for k, v in
+                            warp_corr.launches_by_shape.items()})
+    check(warp_corr.launches == 28 * 3, f"{warp_corr.launches} K1 launches "
+          f"in 3 sharded requests")
+    check(depth.shape == (1, hh, ww // 2), f"shard depth {depth.shape}")
+    shard = space.shard(local.shape[3], depth.device)
+    with torch.inference_mode():
+        depth = shard.gather(depth, -1)
+        confs = [shard.gather(c, -1) for c in confs]
+    del runner
+    if lead:
+        full = DepthRunner.from_random("casdiffmvs", **kw)
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, want_confs = full(imgs, projs, dv)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        out.update(plain_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   plain_ms=statistics.mean(plain_ms[1:]))
+        rel = ((depth - want).abs() / want.abs().clamp_min(1e-12))
+        conf_err = max((c - w).abs().max().item()
+                       for c, w in zip(confs, want_confs))
+        out.update(depth_mean_rel=rel.mean().item(),
+                   depth_max_rel=rel.max().item(), conf_max_abs=conf_err)
+        check(bool(torch.isfinite(depth).all()), "finite sharded depth")
+        check(rel.mean().item() < gate, f"sp {dtype} depth mean rel "
+              f"{rel.mean().item()}")
+        if dtype == "float32":
+            check(conf_err < 1e-3, f"sp confidence max abs {conf_err}")
+        del full
+    dist.barrier()
+    return out
+
+
+def sp_train(space, lead):
+    """Two training-cell steps on dp = 1 x sp = 2 (DataParallel over the
+    gloo world) against the plain step on lead."""
+    import torch.distributed as dist
+
+    from diffmvs_tpu_torch.config import MODEL_PRESETS, TrainConfig
+    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.parallel import spatial
+    from diffmvs_tpu_torch.parallel.distributed import DataParallel
+    from diffmvs_tpu_torch.train.state import create_train_state
+    from diffmvs_tpu_torch.train.step import train_step
+    from diffmvs_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    b, views, hh, ww = 4, 5, 512, 640
+    cfg = TrainConfig(model=MODEL_PRESETS["casdiffmvs"], batch_size=b)
+    batches = [synthetic_train_batch(b, views, hh, ww, 384, seed=i)
+               for i in range(2)]
+
+    def steps(dp):
+        state = create_train_state(cfg, steps_per_epoch=10, device="cuda",
+                                   seed=0)
+        if dp is not None:
+            dp = dp(state.model)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        torch.cuda.reset_peak_memory_stats()
+        res = []
+        for batch in batches:
+            if dp is not None:
+                batch = spatial.column_slice(batch, space.rank, space.size)
+            warp_corr.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scalars, _ = train_step(state, cfg, batch, gen, dp=dp)
+            torch.cuda.synchronize()
+            res.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                loss=float(scalars["loss"]), grads=flat_grads(state.model),
+                launches=(warp_corr.launches, warp_corr.bwd_launches),
+                k2_by_shape={str(k): v for k, v in
+                             warp_corr.bwd_launches_by_shape.items()},
+                stats=torch.cat([v.float().flatten() for k, v in
+                                 state.model.state_dict().items()
+                                 if "running_" in k])))
+        return res, torch.cuda.max_memory_allocated() / 2**30
+
+    sharded, peak = steps(lambda m: DataParallel(m, space))
+    for i, st in enumerate(sharded):
+        check(st["launches"] == (28, 28), f"sp step {i}: K1 / K2 launches "
+              f"{st['launches']} a rank")
+        check(math.isfinite(st["loss"]), f"sp step {i} loss {st['loss']}")
+    out = dict(peak_gib=peak, step_ms=[st["ms"] for st in sharded],
+               launches=[st["launches"] for st in sharded],
+               k2_by_shape=sharded[0]["k2_by_shape"],
+               losses=[st["loss"] for st in sharded])
+    if lead:
+        plain, plain_peak = steps(None)
+        rels, coss, stat_errs = [], [], []
+        for p, d in zip(plain, sharded):
+            rels.append(abs(d["loss"] - p["loss"]) / abs(p["loss"]))
+            coss.append(cosine(d["grads"], p["grads"]))
+            stat_errs.append(((d["stats"] - p["stats"]).abs()
+                              / (1.0 + p["stats"].abs())).max().item())
+        out.update(plain_peak_gib=plain_peak,
+                   plain_step_ms=[p["ms"] for p in plain], loss_rel=rels,
+                   grad_cosine=coss, bn_stats_max_err=stat_errs)
+        check(max(rels) < 1e-4, f"sp loss rel {rels}")
+        check(min(coss) > 0.9999, f"sp gradient cosine {coss}")
+        check(max(stat_errs) < 1e-5, f"sp BatchNorm statistics {stat_errs}")
+    dist.barrier()
+    return out
+
+
+def sp_rank(rank, port, outdir):
+    """One rank of the sp phase: two gloo ranks on the one card."""
+    import torch.distributed as dist
+
+    from diffmvs_tpu_torch.api import set_f32_precision
+    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.parallel.distributed import space_group
+
+    torch.cuda.set_device(0)
+    set_f32_precision()
+    warp_corr._load()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        space = space_group(2)
+        lead = rank == 0
+        res = {"collectives": sp_collectives(space, torch.device("cuda")),
+               "f32": sp_serve(space, "float32", 1e-4, lead),
+               "bf16": sp_serve(space, "bfloat16", 5e-2, lead),
+               "train": sp_train(space, lead),
+               "modules": sorted(m for m in sys.modules if m.split(".")[0]
+                                 in ("jax", "jaxlib", "flax",
+                                     "diffmvs_tpu"))}
+        (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sp(run):
+    """Width sharding (sp = 2) in two gloo ranks on the one card, spawned
+    with a timeout and killed on it: the sharded export forward at the
+    main-path configuration in f32 and bf16 against the unsharded one, and
+    two training-cell steps (dp = 1 x sp = 2) against the plain step, with
+    each rank's peak memory and times beside the unsharded figures."""
+    import multiprocessing as mp
+
+    outdir = REPO / "build" / "chip_smoke_sp"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=sp_rank, args=(r, port, str(outdir)))
+             for r in range(2)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=max(1.0, SP_TIMEOUT_S - (time.time() - t0)))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    check(not hung, f"an sp rank did not finish in {SP_TIMEOUT_S} s")
+    check([p.exitcode for p in procs] == [0, 0],
+          f"sp ranks exited {[p.exitcode for p in procs]}")
+    ranks = [json.loads((outdir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    check(all(r["modules"] == [] for r in ranks), "sp ranks imported JAX")
+    lead = ranks[0]
+    for tag in ("f32", "bf16"):
+        f = lead[tag]
+        log("sp", part="export", dtype=tag, S=2, hw="1152x1600",
+            shard_w=800, collectives=",".join(lead["collectives"]),
+            depth_mean_rel=f"{f['depth_mean_rel']:.3e}",
+            depth_max_rel=f"{f['depth_max_rel']:.3e}",
+            conf_max_abs=f"{f['conf_max_abs']:.3e}",
+            peak_gib_per_rank=repr([round(r[tag]["peak_gib"], 3)
+                                    for r in ranks]),
+            peak_gib_unsharded=f"{f['plain_peak_gib']:.3f}",
+            ms_per_rank=repr([round(r[tag]["ms"], 1) for r in ranks]),
+            ms_unsharded=f"{f['plain_ms']:.1f}",
+            k1_per_request=f["k1"] // 3,
+            collectives_per_request=",".join(
+                f"{k}:{v}" for k, v in f["collectives"].items()),
+            gates=("depth_mean_rel<1e-4,conf_max_abs<1e-3" if tag == "f32"
+                   else "depth_mean_rel<5e-2"))
+    t = lead["train"]
+    log("sp", part="train", dtype="f32", dp=1, S=2, B=4, hw="512x640",
+        steps=2, loss_rel=repr([float(f"{r:.3e}") for r in t["loss_rel"]]),
+        grad_cosine=repr([round(c, 9) for c in t["grad_cosine"]]),
+        bn_stats_max_err=repr([float(f"{e:.3e}")
+                               for e in t["bn_stats_max_err"]]),
+        k1_k2_per_step_per_rank=repr([r["train"]["launches"]
+                                      for r in ranks]),
+        peak_gib_per_rank=repr([round(r["train"]["peak_gib"], 3)
+                                for r in ranks]),
+        peak_gib_unsharded=f"{t['plain_peak_gib']:.3f}",
+        step_ms_per_rank=repr([[round(m, 1) for m in r["train"]["step_ms"]]
+                               for r in ranks]),
+        step_ms_unsharded=repr([round(m, 1) for m in t["plain_step_ms"]]),
+        gates="loss_rel<1e-4,cosine>0.9999,bn_stats<1e-5")
+    run["sp_k1"] = {tag: {tuple(int(x) for x in k.strip("()").split(",")):
+                          v for k, v in lead[tag]["k1_by_shape"].items()}
+                    for tag in ("f32", "bf16")}
+    run["sp_k2"] = {tuple(int(x) for x in k.strip("()").split(",")): v
+                    for k, v in t["k2_by_shape"].items()}
+
+
 def make_sparse_model(root, n_images, hh, ww, n_points, seed=0):
     """A COLMAP text sparse model: one PINHOLE camera, n_images views on a
     full circle 650 mm around n_points points in a 200 mm cube (every
@@ -1764,12 +2162,14 @@ def main():
     dev = torch.device("cuda")
     run = {"dev": dev, "gen": torch.Generator(device=dev).manual_seed(0),
            "k1_rows": {}, "k2_rows": {}, "k1_rows_bf16": {},
-           "k2_rows_bf16": {}, "k3_rows": [], "operand_rows": []}
+           "k2_rows_bf16": {}, "k1_rows_sp": {}, "k1_rows_sp_bf16": {},
+           "k2_rows_sp": {}, "k2_rows_sp_bf16": {}, "k3_rows": [],
+           "operand_rows": []}
     for phase in (phase_kernel, phase_train_kernel, phase_small, phase_main,
                   phase_main_bf16, phase_train_small, phase_train,
                   phase_train_bf16, phase_k3_kernel, phase_export,
                   phase_train_cli, phase_train_cli_blend, phase_ddp,
-                  phase_colmap):
+                  phase_sp, phase_colmap):
         phase(run)
 
     kernels = []
@@ -1781,8 +2181,16 @@ def main():
             (run["k2_rows"], run["k2_launches"], "warp_corr_bwd.cu",
              "warp_corr_bwd.py:61", "warp_corr_bwd"),
             (run["k2_rows_bf16"], run["k2_launches_bf16"],
-             "warp_corr_bwd.cu", "warp_corr_bwd.py:61", "warp_corr_bwd")):
-        bf16 = rows is run["k1_rows_bf16"] or rows is run["k2_rows_bf16"]
+             "warp_corr_bwd.cu", "warp_corr_bwd.py:61", "warp_corr_bwd"),
+            # the width shards' shapes: launches from the sp phase, a rank
+            (run["k1_rows_sp"], run["sp_k1"]["f32"], "warp_corr.cu",
+             "warp_corr.py:210", "warp_corr"),
+            (run["k1_rows_sp_bf16"], run["sp_k1"]["bf16"], "warp_corr.cu",
+             "warp_corr.py:210", "warp_corr"),
+            (run["k2_rows_sp"], run["sp_k2"], "warp_corr_bwd.cu",
+             "warp_corr_bwd.py:61", "warp_corr_bwd")):
+        bf16 = rows is run["k1_rows_bf16"] or rows is run["k2_rows_bf16"] \
+            or rows is run["k1_rows_sp_bf16"]
         for key, (name, r) in rows.items():
             if key not in counts:     # measured, not on a path (DiffMVS)
                 continue
@@ -1833,7 +2241,7 @@ def main():
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None})
-    check(len(kernels) == 22, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 31, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,8 @@
         --trainpath DTU --trainlist lists/dtu/train.txt \
         --testlist lists/dtu/val.txt --preset casdiffmvs --logdir ckpts/cas
     torchrun --nproc_per_node N -m diffmvs_tpu_torch.cli.train --dp N ...
+    torchrun --nproc_per_node D*S -m diffmvs_tpu_torch.cli.train \
+        --dp D --sp S ...
 
 Counterpart of diffmvs_tpu/cli/train.py (the reference's train.py): the
 same flags, presets and per-stage triplet overrides, the same datasets
@@ -14,10 +16,13 @@ in --logdir (the step count, the optimizer and the schedule with it).
 What differs from the JAX CLI:
   * --device (default cuda): training runs on the card unless --device
     cpu is asked for; without a card the default raises.
-  * --dp N trains data-parallel over the N processes torchrun starts, one
-    card each (parallel/distributed.py): --batch_size stays the global
-    batch, as in JAX, and must divide by N; every rank loads its rows of
-    each global batch. --sp > 1 (width sharding) is refused.
+  * --dp D --sp S trains on the (D, S) mesh of the D * S processes
+    torchrun starts, one card each (NCCL; gloo with --device cpu):
+    parallel/distributed.py. --batch_size stays the global batch, as in
+    JAX, and must divide by D; rank d * S + s loads rows d of each global
+    batch and keeps column shard s of every map (--sp: width sharding,
+    parallel/spatial.py; the width a multiple of 32 * S). --dp -1 takes
+    the world size / S; a world size other than D * S raises.
   * --loadckpt: a file ending in .ckpt (a reference checkpoint, or one
     the port wrote: the format is the same) goes through
     api.clean_reference_state_dict and loads with strict=True, raising on
@@ -27,7 +32,8 @@ What differs from the JAX CLI:
     train/checkpoint.load_weights_only with strict=False, as the JAX CLI's
     weights-only path does, and prints the keys that were not loaded.
   * Python's `random` (the datasets' source-view draws) is seeded from
-    --seed and the rank; with --workers > 0 each worker seeds its own
+    --seed and the data rank (the ranks of a space group load the same
+    samples); with --workers > 0 each worker seeds its own
     (data/pipeline.py).
 """
 
@@ -80,7 +86,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=-1,
                    help="data-parallel ranks (-1: torchrun's world size)")
     p.add_argument("--sp", type=int, default=1,
-                   help="width sharding: not ported, must be 1")
+                   help="width-sharding ranks per data rank")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     # model triplet overrides (reference flag compatibility)
     p.add_argument("--numdepth_initial", type=int)
@@ -132,7 +138,7 @@ def train_config_from_args(args) -> TrainConfig:
         conf_weight=args.conf_weight, save_freq=args.save_freq,
         eval_freq=args.eval_freq, summary_freq=args.summary_freq,
         dp=args.dp, sp=args.sp, accum_steps=args.accum_steps,
-    )
+    ).validate()
 
 
 def load_weights(path: str, state) -> None:
@@ -154,7 +160,8 @@ def main(argv=None) -> dict:
     from diffmvs_tpu_torch.data.pipeline import DataPipeline
     from diffmvs_tpu_torch.data.registry import find_dataset_def
     from diffmvs_tpu_torch.parallel.distributed import (
-        DataParallel, init_distributed, resolve_mesh)
+        DataParallel, init_distributed, resolve_mesh, space_group)
+    from diffmvs_tpu_torch.parallel.spatial import shard_width
     from diffmvs_tpu_torch.train.checkpoint import restore_checkpoint
     from diffmvs_tpu_torch.train.loop import run_eval, run_training
     from diffmvs_tpu_torch.train.state import create_train_state
@@ -167,10 +174,11 @@ def main(argv=None) -> dict:
         if cfg.batch_size % dp_size:
             raise ValueError(f"--batch_size {cfg.batch_size} does not divide "
                              f"over --dp {dp_size} ranks")
+        data_rank, space_rank = divmod(rank, cfg.sp)
         lead = rank == 0
         if lead:
             print("config:", cfg)
-        random.seed(f"{cfg.seed}:{rank}")
+        random.seed(f"{cfg.seed}:{data_rank}")
         if args.testpath is None:
             args.testpath = args.trainpath
 
@@ -183,10 +191,12 @@ def main(argv=None) -> dict:
         train_loader = DataPipeline(
             train_ds, cfg.batch_size, shuffle=True, drop_last=True,
             seed=cfg.seed, num_workers=args.workers, pin_memory=pin,
-            rank=rank, world_size=dp_size)
+            rank=data_rank, world_size=dp_size, space_rank=space_rank,
+            space_size=cfg.sp)
         val_loader = DataPipeline(val_ds, cfg.batch_size, shuffle=False,
                                   drop_last=False, num_workers=args.workers,
-                                  pin_memory=pin)
+                                  pin_memory=pin, space_rank=space_rank,
+                                  space_size=cfg.sp)
 
         state = create_train_state(cfg, steps_per_epoch=len(train_loader),
                                    device=dev, seed=cfg.seed)
@@ -200,11 +210,16 @@ def main(argv=None) -> dict:
                 print(f"loaded weights from {args.loadckpt}")
 
         os.makedirs(args.logdir, exist_ok=True)
+        space = space_group(cfg.sp) if world_size > 1 else None
         if args.mode == "test":
-            means = run_eval(state, cfg, val_loader, args.logdir) \
-                if lead else None
-            return {"state": state, "eval": means}
-        dp = DataParallel(state.model) if world_size > 1 else None
+            if space is not None:
+                shard_width(state.model, space)
+            means = (run_eval(state, cfg, val_loader, args.logdir, space)
+                     if data_rank == 0 else None)
+            if world_size > 1:
+                dist.barrier()
+            return {"state": state, "eval": means if lead else None}
+        dp = DataParallel(state.model, space) if world_size > 1 else None
         run_training(state, cfg, train_loader, val_loader, args.logdir,
                      dp=dp)
         return {"state": state, "eval": None}

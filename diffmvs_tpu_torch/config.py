@@ -7,9 +7,10 @@ operation once, in NCHW, and the plane-sweep warp always goes through
 ops.correlation.warp_and_correlate. The compute dtype and remat are the
 JAX package's: bfloat16 conv stacks over float32 parameters, and each
 refinement iteration recomputed in the backward pass. TrainConfig keeps
-the JAX package's mesh fields: dp is the data-parallel world size
-(parallel/distributed.py, one process per card under torchrun); sp, the
-width sharding, is not ported and must stay 1. EvalConfig and the per-scene fusion tables serve cli/test.py.
+the JAX package's mesh fields: dp data ranks times sp width shards, one
+process per card under torchrun (parallel/distributed.py,
+parallel/spatial.py). EvalConfig and the per-scene fusion tables serve
+cli/test.py.
 
 Per-stage hyperparameters are 3-tuples indexed by stage (stage 0 = 1/8-res
 initialization, stage 1 = 1/4-res refinement, stage 2 = 1/2-res
@@ -156,9 +157,10 @@ class TrainConfig:
     eval_freq: int = 1
     summary_freq: int = 20
 
-    # data parallelism: dp ranks (-1 = the world size torchrun gives, else
-    # 1), each loading batch_size // dp rows of every global batch; sp
-    # (width sharding) must be 1 (parallel/distributed.resolve_mesh)
+    # the (dp, sp) mesh over dp * sp processes: dp data ranks (-1 = the
+    # world size torchrun gives / sp), each loading batch_size // dp rows
+    # of every global batch, times sp width shards of every map
+    # (parallel/distributed.resolve_mesh)
     dp: int = -1
     sp: int = 1
 
@@ -166,6 +168,15 @@ class TrainConfig:
     # microbatches whose gradients are averaged into ONE optimizer update
     # (train/step.py)
     accum_steps: int = 1
+
+    def validate(self) -> "TrainConfig":
+        """The mesh sizes are positive, dp -1 meaning the world size / sp
+        (the world size itself is checked where the processes are known,
+        parallel/distributed.resolve_mesh)."""
+        if self.sp < 1 or (self.dp < 1 and self.dp != -1):
+            raise ValueError(f"dp={self.dp}, sp={self.sp}: mesh sizes are "
+                             f"positive (dp -1: the world size / sp)")
+        return self
 
 
 # ---------------------------------------------------------------------------

@@ -25,10 +25,14 @@ Two additions to the JAX pipeline:
     pipeline's forked workers all inherit the parent's one `random` state
     instead; with num_workers=0 both draw from the calling process's
     `random`, so the same random.seed gives the same samples.
-  * The rank split. batch_size is the GLOBAL batch: with world_size W,
-    rank r loads rows [r*B/W, (r+1)*B/W) of each global batch of the one
-    order every rank computes alike (EpochShuffle(seed + epoch)), so the
-    ranks together load exactly the single-process batches.
+  * The rank split. batch_size is the GLOBAL batch: with world_size W
+    data ranks, data rank r loads rows [r*B/W, (r+1)*B/W) of each global
+    batch of the one order every rank computes alike (EpochShuffle(seed +
+    epoch)), so the ranks together load exactly the single-process
+    batches. With width sharding (space_size S > 1) space rank s keeps its
+    columns of those rows (parallel/spatial.column_slice: the images and
+    each stage's depth and mask; the projections whole), as the JAX
+    pipeline's (data, space) sharding lays a batch out.
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch.utils.data import DataLoader, Sampler
+
+from diffmvs_tpu_torch.parallel.spatial import column_slice
 
 
 def _collate(samples: Sequence[dict]) -> dict:
@@ -59,13 +65,15 @@ def _collate(samples: Sequence[dict]) -> dict:
     return out
 
 
-def collate(samples: Sequence[dict]) -> dict:
-    """_collate, with every array as a CPU tensor (strings stay lists)."""
+def collate(samples: Sequence[dict], space=(0, 1)) -> dict:
+    """_collate, with every array as a contiguous CPU tensor (strings stay
+    lists); space = (space rank, space size) keeps the rank's columns."""
     def to_tensor(v):
         if isinstance(v, dict):
             return {k: to_tensor(x) for k, x in v.items()}
-        return v if isinstance(v, list) else torch.from_numpy(v)
-    return to_tensor(_collate(samples))
+        return (v if isinstance(v, list)
+                else torch.from_numpy(np.ascontiguousarray(v)))
+    return to_tensor(column_slice(_collate(samples), *space))
 
 
 class EpochShuffle(Sampler):
@@ -130,13 +138,15 @@ def _worker_init(worker_id, rank=0):
 
 
 class DataPipeline:
-    """Iterable over collated host batches (this rank's rows of each
-    global batch)."""
+    """Iterable over collated host batches (this data rank's rows of each
+    global batch; with space_size > 1, this space rank's columns of
+    them)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
                  num_workers: int = 0, pin_memory: bool = False,
-                 rank: int = 0, world_size: int = 1):
+                 rank: int = 0, world_size: int = 1, space_rank: int = 0,
+                 space_size: int = 1):
         kwargs = {}
         if num_workers > 0:
             kwargs = dict(multiprocessing_context=mp.get_context("spawn"),
@@ -147,7 +157,9 @@ class DataPipeline:
         self.loader = DataLoader(
             dataset, batch_sampler=RankBatches(order, batch_size, drop_last,
                                                rank, world_size),
-            num_workers=num_workers, collate_fn=collate,
+            num_workers=num_workers,
+            collate_fn=functools.partial(collate,
+                                         space=(space_rank, space_size)),
             pin_memory=pin_memory,
             generator=torch.Generator().manual_seed(seed), **kwargs)
 

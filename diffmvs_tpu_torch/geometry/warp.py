@@ -18,18 +18,22 @@ from __future__ import annotations
 import torch
 
 
-def plane_sweep_coords(rot, trans, depth_values):
+def plane_sweep_coords(rot, trans, depth_values, x_off: int = 0):
     """Source-view pixel coordinates for each ref pixel x depth hypothesis.
 
     rot: [B, 3, 3], trans: [B, 3] -- relative projection src <- ref.
     depth_values: [B, D, H, W] metric depths of the hypotheses.
+    x_off: the global column of the depths' first column (a width shard's
+      offset): ref pixel (y, x) lies at column x + x_off. The float32 of
+      an integer below 2^24 is exact, so a shard's coordinates equal the
+      unsharded ones' columns bit for bit.
     Returns (x, y): each [B, D, H, W] float32, without gradient.
     """
     b, d, h, w = depth_values.shape
     dev = depth_values.device
     ys, xs = torch.meshgrid(
         torch.arange(h, dtype=torch.float32, device=dev),
-        torch.arange(w, dtype=torch.float32, device=dev),
+        torch.arange(x_off, x_off + w, dtype=torch.float32, device=dev),
         indexing="ij")
     xg = xs[None]                                          # [1, H, W]
     yg = ys[None]

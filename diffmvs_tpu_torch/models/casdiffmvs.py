@@ -22,6 +22,17 @@ Inside, maps are NCHW; the images enter as a channels-last view, so the
 conv stacks run channels-last and the stage features reach the warp
 kernel as contiguous NHWC maps without a copy (for B = 1).
 
+Width sharding (parallel/spatial.shard_width sets `space`): the model
+then takes this rank's columns of every map (imgs [B, V, H, w, 3], GT and
+train_overrides' noise alike, whole projections and depth values) and
+returns its columns of every output. The forward all-gathers the shards'
+widths once (spatial.Shard: any 32-aligned split), gathers each source
+view's features to full width once per stage (in their own dtype) for
+the warp, which takes ref's column offset at each stride, and draws its
+noise at full width; the convolutions, norms and the convex upsampling
+exchange halos (nn/layers.py, nn/unet.py, geometry/upsample.py). The
+nearest upsamplings are local.
+
 Compute dtype (cfg.compute_dtype, the JAX package's policy): the conv
 stacks compute in cfg.dtype over float32 parameters; the uint8 / 255 input
 normalization, the geometry, the soft-argmax, the convex upsampling (the
@@ -70,6 +81,8 @@ def views_nhwc(x, b, v):
 
 
 class CasDiffMVS(nn.Module):
+    space = None        # a spatial.SpaceGroup once width-sharded
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         cfg.validate()
@@ -145,6 +158,9 @@ class CasDiffMVS(nn.Module):
         if imgs.dtype == torch.uint8:
             imgs = imgs.float() / 255.0
         b, v = imgs.shape[0], imgs.shape[1]
+        space = self.space
+        shard = None if space is None else space.shard(imgs.shape[3],
+                                                       imgs.device)
 
         disp_min = depth_values[:, 0].float()              # [B]
         disp_max = depth_values[:, -1].float()
@@ -179,6 +195,12 @@ class CasDiffMVS(nn.Module):
                 continue
             stage_key = f"stage{stage_idx + 1}"
             feat_list = features[stage_key]
+            cols = None
+            if shard is not None:       # the warp reads whole source maps
+                stride = 2 ** (3 - stage_idx)
+                cols = shard.at(stride)
+                feat_list = [feat_list[0]] + [shard.gather(f, 2, stride)
+                                              for f in feat_list[1:]]
             proj_stage = proj_matrices[stage_key].float()
             context_stage = contexts[stage_key]
             h, w = feat_list[0].shape[1], feat_list[0].shape[2]
@@ -193,10 +215,12 @@ class CasDiffMVS(nn.Module):
                 ctx = F.relu(context_stage)
                 mask, inv_depth, init_depth, view_weights, conf = \
                     self.depthnet(feat_list, ctx, proj_stage, depth_hyp,
-                                  scale_inv_depth)
+                                  scale_inv_depth,
+                                  x_off=0 if cols is None else cols.start)
                 depth_predictions.append(init_depth)
                 confidences.append(upsample_nearest(conf, 2 ** 3))
-                inv_up = upsample_with_mask(inv_depth, mask.float(), 2)
+                inv_up = upsample_with_mask(inv_depth, mask.float(), 2,
+                                            space)
                 depth_predictions.append(scale_inv_depth(inv_up)[1])
                 continue
 
@@ -222,7 +246,7 @@ class CasDiffMVS(nn.Module):
                 inv_cur, hidden_d, ctx, feat_list, proj_stage, depth_min,
                 depth_max, vw_stage, generator=generator,
                 gt_inv_depth=inv_gt, inv_init_depth=inv_init, train=train,
-                t_noise=t_noise)
+                t_noise=t_noise, cols=cols)
 
             if train or not export:
                 for inv_i in inv_seq:
@@ -234,7 +258,7 @@ class CasDiffMVS(nn.Module):
                     upsample_nearest(conf_seq[-1], 2 ** (3 - stage_idx)))
 
             inv_up = upsample_with_mask(inv_seq[-1], mask.float(),
-                                        cfg.up_ratio)
+                                        cfg.up_ratio, space)
             depth_predictions.append(scale_inv_depth(inv_up)[1])
 
         return {

@@ -50,7 +50,8 @@ def compute_inverse_loss(depths, confs, depth_gt, mask, depth_values,
     depth_gt / mask: {stage1..4: [B, Hs, Ws]}.
     depth_values: [B, ND] inverse-depth linspace.
     denominators: optional {stage1..4: scalar} replacing each mask's count
-      in the masked means (the data-parallel step's global counts).
+      in the masked means (the parallel step's counts over every rank's
+      rows and columns, train/step.global_denominators).
     Returns (total_loss, {"l0".."lN": plain masked L1 per entry}).
     """
     stage_id, conf_flag = loss_layout(stage_iters)

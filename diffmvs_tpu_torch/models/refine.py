@@ -19,6 +19,11 @@ package's nn.remat(RefineIteration)): only an iteration's inputs are kept
 for the backward, so the stage's activation memory no longer grows with
 its iterations.
 
+On a width shard (parallel/spatial.py) the maps hold this rank's columns
+(`cols`, a spatial.Columns at the stage's resolution): every noise is
+drawn at the full width and sliced to them, so it is the unsharded draw,
+and the warp takes their offset.
+
 RefinementStage subclasses RefineIteration so that the encoder, the UNet
 and the mask head sit directly under the stage, as in the reference's
 state_dict (update_block_depth2.encoder.*, .unet.*, .mask.*).
@@ -37,20 +42,26 @@ from diffmvs_tpu_torch.models.stages import UpsampleMaskHead, local_cost_volume
 from diffmvs_tpu_torch.nn.unet import ConditionEncoder, DiffusionUNet
 
 
-def noise_like(generator: Optional[torch.Generator], x, scale: float):
+def noise_like(generator: Optional[torch.Generator], x, scale: float,
+               cols=None):
+    """scale * N(0, 1) shaped like x [..., W] (zeros, and no draw, without
+    a generator or at scale 0); with cols (x holds columns cols of a map
+    cols.width wide), drawn at the full width and sliced."""
     if generator is None or scale == 0.0:
         return torch.zeros_like(x)
-    return scale * torch.randn(x.shape, generator=generator, device=x.device,
-                               dtype=x.dtype)
+    shape = x.shape if cols is None else x.shape[:-1] + (cols.width,)
+    noise = scale * torch.randn(shape, generator=generator, device=x.device,
+                                dtype=x.dtype)
+    return noise if cols is None else cols.take(noise)
 
 
-def draw_t_noise(schedule: DiffusionSchedule, like, generator):
+def draw_t_noise(schedule: DiffusionSchedule, like, generator, cols=None):
     """The training branch's draw from `generator`, in its order: the
     timesteps [B], then the noise shaped like `like` [B, H, W] (zeros, and
-    no draw, where the schedule's noise scale is 0)."""
+    no draw, where the schedule's noise scale is 0; cols as noise_like's)."""
     t = torch.randint(0, schedule.timesteps, (like.shape[0],),
                       generator=generator, device=like.device)
-    return t, noise_like(generator, like, schedule.scale)
+    return t, noise_like(generator, like, schedule.scale, cols)
 
 
 class RefineIteration(nn.Module):
@@ -75,7 +86,7 @@ class RefineIteration(nn.Module):
 
     def iterate(self, hidden, inv_new, delta, confidence, has_conf, context,
                 t, inv_depth, features, proj_pairs, depth_min, depth_max,
-                view_weights):
+                view_weights, x_off=0):
         """Returns the next (hidden, inv_new, delta, confidence); the last
         three float32 whatever the compute dtype."""
         delta = delta.detach()
@@ -85,7 +96,8 @@ class RefineIteration(nn.Module):
             inv_new, features, proj_pairs, self.depth_interval, depth_min,
             depth_max, self.cost_num, self.group_dim, view_weights,
             confidence=confidence, min_radius=self.min_radius,
-            max_radius=self.max_radius, use_confidence=has_conf)
+            max_radius=self.max_radius, use_confidence=has_conf,
+            x_off=x_off)
         input_features = self.encoder(inv_new[:, None], samples, cost)
         input_unet = torch.cat([context, input_features], dim=1)
         hidden, update, confidence = self.unet(input_unet, hidden, t)
@@ -129,9 +141,10 @@ class RefinementStage(RefineIteration):
                 depth_min, depth_max, view_weights,
                 generator: Optional[torch.Generator] = None,
                 gt_inv_depth=None, inv_init_depth=None, train: bool = False,
-                t_noise=None):
+                t_noise=None, cols=None):
         """All maps [B, H, W]; hidden/context NCHW. train=True runs the
-        q_sample training branch, else DDIM inference.
+        q_sample training branch, else DDIM inference. cols: the maps'
+        columns on a width shard (a spatial.Columns), None for whole maps.
 
         Returns (mask_logits, hidden, [inv_depth per iteration],
                  [confidence per iteration]); at inference, those of the
@@ -141,23 +154,25 @@ class RefinementStage(RefineIteration):
             return self.train_forward(
                 inv_depth, hidden, context, features, proj_pairs, depth_min,
                 depth_max, view_weights, gt_inv_depth, inv_init_depth,
-                generator=generator, t_noise=t_noise)
+                generator=generator, t_noise=t_noise, cols=cols)
         return self.eval_forward(inv_depth, hidden, context, features,
                                  proj_pairs, depth_min, depth_max,
-                                 view_weights, generator=generator)
+                                 view_weights, generator=generator,
+                                 cols=cols)
 
     def train_forward(self, inv_depth, hidden, context, features,
                       proj_pairs, depth_min, depth_max, view_weights,
                       gt_inv_depth, inv_init_depth,
                       generator: Optional[torch.Generator] = None,
-                      t_noise=None):
+                      t_noise=None, cols=None):
         """Training branch: the iterations denoise q_sample(GT residual).
 
         gt_inv_depth: [B, H, W] normalized inverse GT (inf where the GT is
           0, replaced by inv_init_depth, the detached initial estimate).
         t_noise: optional (t [B], noise [B, H, W]) replacing the draw from
           `generator` (the seam that lets two implementations take the same
-          timesteps and noise).
+          timesteps and noise); on a width shard, this rank's columns of
+          the noise.
         """
         dev = inv_depth.device
         sched = self.schedule
@@ -169,7 +184,7 @@ class RefinementStage(RefineIteration):
             noise = torch.as_tensor(t_noise[1], dtype=gt_delta.dtype,
                                     device=dev)
         elif generator is not None:
-            t, noise = draw_t_noise(sched, gt_delta, generator)
+            t, noise = draw_t_noise(sched, gt_delta, generator, cols)
         else:
             raise ValueError("the training branch draws its timesteps and "
                              "noise from a generator: pass one, or t_noise")
@@ -179,23 +194,26 @@ class RefinementStage(RefineIteration):
         delta = inv_new - inv_depth
         confidence = torch.zeros_like(inv_depth)
         cur_hidden = hidden
+        x_off = 0 if cols is None else cols.start
         inv_seq, conf_seq = [], []
         for i in range(self.iters):
             cur_hidden, inv_new, delta, confidence = self.step(
                 cur_hidden, inv_new, delta, confidence, i > 0, context, t,
                 inv_depth, features, proj_pairs, depth_min, depth_max,
-                view_weights)
+                view_weights, x_off)
             inv_seq.append(inv_new)
             conf_seq.append(confidence)
         return self.mask(context), cur_hidden, inv_seq, conf_seq
 
     def eval_forward(self, inv_depth, hidden, context, features, proj_pairs,
                      depth_min, depth_max, view_weights,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     cols=None):
         """DDIM inference."""
         b = inv_depth.shape[0]
         sched = self.schedule
-        img = noise_like(generator, inv_depth, sched.scale)
+        x_off = 0 if cols is None else cols.start
+        img = noise_like(generator, inv_depth, sched.scale, cols)
         mask = self.mask(context)
 
         cur_hidden = hidden
@@ -215,7 +233,7 @@ class RefinementStage(RefineIteration):
                 cur_hidden, inv_new, delta, confidence = self.step(
                     cur_hidden, inv_new, delta, confidence, i > 0, context,
                     t, inv_depth, features, proj_pairs, depth_min,
-                    depth_max, view_weights)
+                    depth_max, view_weights, x_off)
                 inv_seq.append(inv_new)
                 conf_seq.append(confidence)
 
@@ -223,7 +241,7 @@ class RefinementStage(RefineIteration):
                 continue
             pred_noise = sched.predict_noise_from_start(img, t, delta)
             sqrt_an, c, sigma = sched.ddim_coeffs(time, time_next)
-            noise = noise_like(generator, inv_depth, sched.scale)
+            noise = noise_like(generator, inv_depth, sched.scale, cols)
             img = delta * float(sqrt_an) + float(c) * pred_noise \
                 + float(sigma) * noise
 

@@ -9,6 +9,11 @@ in float32 and is rounded to the features' dtype (diffmvs_tpu/models/
 stages.py:99,176), the view weights are float32 (PixelViewWeight), so the
 view-weighted aggregate promotes to float32; CostRegNet and the mask head
 compute in the model's dtype, and the soft-argmax runs in float32.
+
+On a width shard (parallel/spatial.py) ref's map holds this rank's
+columns, each source map the full width (gathered once per stage by the
+caller), and x_off is the global column of ref's first column at the
+stage's stride: the warp computes the coordinates there.
 """
 
 from __future__ import annotations
@@ -59,13 +64,14 @@ class InitialStage(nn.Module):
         self.mask = UpsampleMaskHead(context_dim, up_ratio, dtype)
 
     def forward(self, features, context, proj_pairs, depth_values,
-                scale_inv_depth):
+                scale_inv_depth, x_off: int = 0):
         """
         features: list of V feature maps [B, H, W, C] (NHWC, ref first).
         context: [B, Cctx, H, W] (relu'd stage-1 context).
         proj_pairs: [B, V, 2, 4, 4] (extrinsic, intrinsic) stacks.
         depth_values: [B, D, H, W] metric hypothesis depths.
         scale_inv_depth: fn(normalized inv depth) -> (scaled_disp, depth).
+        x_off: ref's column offset on a width shard (0: the whole map).
         Returns (mask_logits [B, 9*r*r, H, W], inv_depth [B,H,W],
                  depth [B,H,W], view_weights [V-1,B,H,W],
                  photometric_confidence [B,H,W]).
@@ -76,7 +82,8 @@ class InitialStage(nn.Module):
         for i, src_fea in enumerate(features[1:]):
             cor = warp_and_correlate(
                 src_fea, ref_fea, proj_pairs[:, i + 1], proj_pairs[:, 0],
-                depth_values, self.group_dim).to(ref_fea.dtype)  # [B,D,H,W,G]
+                depth_values, self.group_dim, x_off
+            ).to(ref_fea.dtype)                            # [B,D,H,W,G]
             weight_list.append(self.pixel_view_weight(
                 cor.permute(0, 4, 1, 2, 3)))               # [B,H,W]
             cor_list.append(cor)
@@ -93,7 +100,8 @@ class InitialStage(nn.Module):
 def local_cost_volume(inv_depth, features, proj_pairs, depth_interval,
                       depth_min, depth_max, cost_num, group_dim,
                       view_weights, confidence=None, min_radius=0.2,
-                      max_radius=2.0, use_confidence: bool = True):
+                      max_radius=2.0, use_confidence: bool = True,
+                      x_off: int = 0):
     """Per-iteration local cost volume around the current inverse depth.
 
     Sample cost_num hypotheses (confidence-adaptive radius), warp every
@@ -103,6 +111,7 @@ def local_cost_volume(inv_depth, features, proj_pairs, depth_interval,
     inv_depth: [B, H, W] normalized inverse depth.
     features: list of V NHWC feature maps [B, H, W, C] (ref first).
     view_weights: [V-1, B, H, W] (already upsampled to this stage's res).
+    x_off: ref's column offset on a width shard (0: the whole map).
     Returns (cost [B, G*cost_num, H, W], samples [B, cost_num, H, W]).
     """
     if cost_num > 1:
@@ -119,8 +128,8 @@ def local_cost_volume(inv_depth, features, proj_pairs, depth_interval,
     ref_fea = features[0]
     cor_list = [
         warp_and_correlate(src_fea, ref_fea, proj_pairs[:, i + 1],
-                           proj_pairs[:, 0], depth_hyp, group_dim
-                           ).to(ref_fea.dtype)
+                           proj_pairs[:, 0], depth_hyp, group_dim,
+                           x_off).to(ref_fea.dtype)
         for i, src_fea in enumerate(features[1:])]
     agg = aggregate_views(torch.stack(cor_list), view_weights)  # [B,D,H,W,G]
     _, d, h, w, g = agg.shape

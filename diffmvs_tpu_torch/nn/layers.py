@@ -13,6 +13,15 @@ their gradients come back float32 through the casts. BatchNorm takes the
 conv's output as it is: torch reduces a bfloat16 input's statistics and
 normalizes it in float32 against the float32 affine and running
 statistics, and rounds once to bfloat16 (flax's force_float32_reductions).
+
+Width sharding (parallel/spatial.py): SpaceConv2d, SpaceConv3d and
+SpaceConvTranspose3d are the convolutions' forms on a shard of the width
+(the last dim), which spatial.shard_width swaps in, in place. Each takes
+from its neighbours the columns its kernel, stride and padding reach
+beyond the shard (zeros at the global edges, where the unsharded
+convolution's own padding lies) and convolves without padding along W
+(spatial.halo_conv), so its output is the unsharded output's columns of
+this shard.
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from diffmvs_tpu_torch.parallel import spatial
 
 
 class Conv2d(nn.Conv2d):
@@ -64,6 +75,77 @@ class ConvTranspose3d(nn.ConvTranspose3d):
             x.to(dt), self.weight.to(dt),
             None if self.bias is None else self.bias.to(dt), self.stride,
             self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class _SpaceConv:
+    """Mixin of the width-sharded convolutions: `space` (a
+    spatial.SpaceGroup) is set by spatial.shard_width."""
+
+    space = None
+
+    @staticmethod
+    def check(conv):
+        """Raises unless conv is one these forms take: zero padding, no
+        dilation along W, integer padding."""
+        if (conv.padding_mode != "zeros" or conv.dilation[-1] != 1
+                or isinstance(conv.padding, str)):
+            raise ValueError(f"{type(conv).__name__}: width sharding takes "
+                             f"zero padding without dilation along W")
+
+    def halo_conv(self, x, weight, bias):
+        """This shard's convolution: the left halo is the padding, the
+        right one what the last output's window reaches past the shard;
+        no padding along W; the output cropped to w / stride columns
+        (spatial.halo_conv)."""
+        k, s, p = self.kernel_size[-1], self.stride[-1], self.padding[-1]
+        w = x.shape[-1]
+        if w % s:
+            raise ValueError(f"shard width {w} not divisible by stride {s}")
+        conv = (self.stride, self.padding[:-1] + (0,), self.dilation, False,
+                (0,) * len(self.stride), self.groups)
+        return spatial.halo_conv(x, weight, bias, conv, p,
+                                 max(k - p - s, 0), 0, w // s, self.space)
+
+
+class SpaceConv2d(_SpaceConv, Conv2d):
+    """Conv2d on a width shard."""
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self.halo_conv(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
+
+
+class SpaceConv3d(_SpaceConv, Conv3d):
+    """Conv3d on a width shard."""
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self.halo_conv(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
+
+
+class SpaceConvTranspose3d(_SpaceConv, ConvTranspose3d):
+    """ConvTranspose3d on a width shard. Output column o = i * s - p + kk
+    takes input columns i with i * s - p <= o <= i * s - p + k - 1, so a
+    shard of outputs [a s, b s) reads inputs from a - (k - 1 - p) // s to
+    b - 1 + ((p - 1) // s + 1): for the decoder's k 3, stride 2, padding 1,
+    one column of the right neighbour. Transposed without padding along W,
+    the output is cropped to the shard's columns."""
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        k, s, p = self.kernel_size[-1], self.stride[-1], self.padding[-1]
+        w = x.shape[-1]
+        left = (k - 1 - p) // s
+        conv = (self.stride, self.padding[:-1] + (0,), self.dilation, True,
+                self.output_padding[:-1] + (0,), self.groups)
+        return spatial.halo_conv(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt), conv, left,
+            (p - 1) // s + 1, left * s + p, w * s, self.space)
 
 
 class Linear(nn.Linear):

@@ -19,6 +19,12 @@ layer computes in it over float32 parameters; WSConv standardizes its
 float32 kernel first; GroupNorm reduces and normalizes in float32 and
 returns its input's dtype; the time embedding is float32 until the MLP
 casts it.
+
+Width sharding (parallel/spatial.py): SpaceWSConv is WSConv on a shard
+of the width, SpaceGroupNorm a GroupNorm whose moments run over the whole
+width (summed over the space group, in training and in eval alike).
+Downsample's space-to-depth and Upsample's nearest resize are local: the
+shards' columns are 32-aligned.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffmvs_tpu_torch.nn.layers import Conv2d, Linear, SepConvGRU
+from diffmvs_tpu_torch.nn.layers import (Conv2d, Linear, SepConvGRU,
+                                         _SpaceConv)
+from diffmvs_tpu_torch.parallel import spatial
 
 
 def sinusoidal_pos_emb(t, dim):
@@ -57,15 +65,27 @@ class WSConv(Conv2d):
     float32 input (1e-3 for a lower-precision one), then cast to the
     compute dtype."""
 
-    def forward(self, x):
-        dt = self.compute_dtype
+    def standardized(self, x):
+        """The standardized kernel for input x, in the compute dtype."""
         eps = 1e-5 if x.dtype == torch.float32 else 1e-3
         w = self.weight
         mean = w.mean(dim=(1, 2, 3), keepdim=True)
         var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
-        w = (w - mean) * torch.rsqrt(var + eps)
-        return F.conv2d(x.to(dt), w.to(dt), self.bias.to(dt), self.stride,
-                        self.padding)
+        return ((w - mean) * torch.rsqrt(var + eps)).to(self.compute_dtype)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv2d(x.to(dt), self.standardized(x), self.bias.to(dt),
+                        self.stride, self.padding)
+
+
+class SpaceWSConv(_SpaceConv, WSConv):
+    """WSConv on a width shard."""
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self.halo_conv(x.to(dt), self.standardized(x),
+                              self.bias.to(dt))
 
 
 class GroupNorm(nn.GroupNorm):
@@ -75,6 +95,23 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x):
         return F.group_norm(x.float(), self.num_groups, self.weight,
                             self.bias, self.eps).to(x.dtype)
+
+
+class SpaceGroupNorm(GroupNorm):
+    """GroupNorm on a width shard: the moments of each (sample, group)
+    over the whole width, summed over the space group in float64
+    (spatial.group_norm); `space` is set by spatial.shard_width."""
+
+    space = None
+
+    @staticmethod
+    def check(norm):
+        if not norm.affine:
+            raise ValueError("SpaceGroupNorm: affine GroupNorms only")
+
+    def forward(self, x):
+        return spatial.group_norm(x, self.num_groups, self.weight,
+                                  self.bias, self.eps, self.space)
 
 
 class Block(nn.Module):

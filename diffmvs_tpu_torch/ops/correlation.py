@@ -39,7 +39,7 @@ def group_correlation(warped, ref, groups):
 
 
 def warp_and_correlate_plain(src_fea, ref_fea, src_pair, ref_pair,
-                             depth_values, groups):
+                             depth_values, groups, x_off: int = 0):
     """Plane-sweep warp + group correlation in plain PyTorch.
 
     src_fea/ref_fea: [B, Hs, Ws, C] / [B, H, W, C] (NHWC), float32 or
@@ -51,10 +51,13 @@ def warp_and_correlate_plain(src_fea, ref_fea, src_pair, ref_pair,
     its Pallas kernels upcast, as here.
     src_pair/ref_pair: [B, 2, 4, 4] (extrinsic, intrinsic) stacks.
     depth_values: [B, D, H, W] metric hypotheses.
+    x_off: the global column of ref's first column (a width shard's
+      offset, geometry/warp.py); src is then the full-width source, wider
+      than ref.
     Returns [B, D, H, W, G] float32.
     """
     rot, trans = relative_projection(src_pair, ref_pair)
-    x, y = plane_sweep_coords(rot, trans, depth_values)
+    x, y = plane_sweep_coords(rot, trans, depth_values, x_off)
     warped = bilinear_sample(src_fea.float(), x, y)
     return group_correlation(warped, ref_fea.float(), groups)
 
@@ -95,7 +98,7 @@ def corner_correlate_plain(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
 
 
 def warp_and_correlate(src_fea, ref_fea, src_pair, ref_pair, depth_values,
-                       groups):
+                       groups, x_off: int = 0):
     """Fused plane-sweep warp + group correlation for one source view.
 
     Same arguments and result as warp_and_correlate_plain, differentiable
@@ -105,10 +108,11 @@ def warp_and_correlate(src_fea, ref_fea, src_pair, ref_pair, depth_values,
     """
     if src_fea.is_cuda:
         return warp_corr.warp_corr(src_fea, ref_fea, src_pair, ref_pair,
-                                   depth_values, groups)
+                                   depth_values, groups, x_off=x_off)
     if src_fea.device.type == "cpu":
         return warp_and_correlate_plain(src_fea, ref_fea, src_pair,
-                                        ref_pair, depth_values, groups)
+                                        ref_pair, depth_values, groups,
+                                        x_off)
     raise ValueError(f"warp_and_correlate: no path for device "
                      f"{src_fea.device}")
 

@@ -18,6 +18,11 @@
 // (rot row-major, then trans), out [N, G, D, H, W] f32 -- the NCDHW layout
 // the 3D convs and the g*D + d refinement cost read without a copy.
 //
+// Width shards (parallel/spatial.py): ref, depth and out hold a shard's
+// columns, and x_off is the global column of its first one; ref pixel x
+// projects from column x + x_off (exact in f32 below 2^24), and src is the
+// full-width source, wider than ref. x_off = 0 is the unsharded map.
+//
 // What bounds it on an H100. Compulsory HBM bytes are small (each input
 // read once, the output written once: 38.7 MB at the DTU sweep, D = 48,
 // C = 48, 144x200, f32), but every (plane, pixel) sample reads 4 corners
@@ -54,17 +59,20 @@ namespace {
 struct SweepSamples {
   const float* depth;
   const float* rt;
+  int x_off;            // the global column of the shard's first column
 
   struct Block {
     const float* m;       // the sample's 12 projection scalars
     const float* dep;     // its depths from plane d0 on
     int hw;
+    int x_off;
 
     __device__ __forceinline__ warp_geom::SampleRec rec(int dd, int x, int y,
                                                         int W, int Hs,
                                                         int Ws) const {
       return warp_geom::pack(
-          warp_geom::locate(m, static_cast<float>(x), static_cast<float>(y),
+          warp_geom::locate(m, static_cast<float>(x + x_off),
+                            static_cast<float>(y),
                             dep[static_cast<size_t>(dd) * hw + y * W + x],
                             Hs, Ws),
           Ws);
@@ -77,7 +85,7 @@ struct SweepSamples {
   __device__ __forceinline__ Block block(int n, int d0, int D,
                                          int hw) const {
     return Block{rt + static_cast<size_t>(n) * 12,
-                 depth + (static_cast<size_t>(n) * D + d0) * hw, hw};
+                 depth + (static_cast<size_t>(n) * D + d0) * hw, hw, x_off};
   }
 
   // bf16 at C/G = 4: two adjacent groups a thread (four timed slower at
@@ -94,15 +102,16 @@ struct SweepSamples {
 }  // namespace
 
 // Plain C interface (loaded with ctypes). dtype: 0 = float32 features,
-// 1 = bfloat16 features. Returns the cudaError_t of the launch (0 = ok).
+// 1 = bfloat16 features; x_off: the column offset of a width shard (0 for
+// a whole map). Returns the cudaError_t of the launch (0 = ok).
 extern "C" int warp_corr_forward(int dtype, const void* src, const void* ref,
                                  const void* depth, const void* rt, void* out,
                                  int n, int d, int h, int w, int hs, int ws,
-                                 int c, int g, void* stream) {
+                                 int c, int g, int x_off, void* stream) {
   return warp_geom::corr_forward(
       dtype, src, ref,
       SweepSamples{static_cast<const float*>(depth),
-                   static_cast<const float*>(rt)},
+                   static_cast<const float*>(rt), x_off},
       static_cast<float*>(out), n, d, h, w, hs, ws, c, g,
       static_cast<cudaStream_t>(stream));
 }

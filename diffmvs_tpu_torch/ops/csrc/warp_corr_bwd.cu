@@ -18,6 +18,11 @@
 // projections and the depths get no gradient (the coordinates are
 // stop-gradient'ed, as the reference computes them under no_grad).
 //
+// Width shards (parallel/spatial.py): ref, depth, g and d_ref hold a
+// shard's columns, x_off the global column of its first one (the samples
+// are computed at column x + x_off, as the forward's); src and d_src are
+// full width, and the caller sums d_src over the shards.
+//
 // Layouts: src [N, Hs, Ws, C], ref [N, H, W, C] channels-last, f32 or bf16
 // (both the same); depth [N, D, H, W] f32; rt [N, 12] f32; g [N, G, D, H,
 // W] f32 (the buffer order of the forward's output); d_src [N, Hs, Ws, C]
@@ -110,8 +115,8 @@ warp_corr_bwd_kernel(const T* __restrict__ src, const T* __restrict__ ref,
                      const float* __restrict__ rt,
                      const float* __restrict__ g, float* __restrict__ d_src,
                      T* __restrict__ d_ref, int D, int H, int W, int Hs,
-                     int Ws, int C, int G, int c_off, int cs, int p_log2,
-                     int tw_log2, int tiles_x, int db) {
+                     int Ws, int C, int G, int x_off, int c_off, int cs,
+                     int p_log2, int tw_log2, int tiles_x, int db) {
   extern __shared__ float4 smem[];        // the samples of db planes [db][P]
   warp_geom::SampleRec* recs = reinterpret_cast<warp_geom::SampleRec*>(smem);
   const int P = 1 << p_log2;
@@ -164,7 +169,7 @@ warp_corr_bwd_kernel(const T* __restrict__ src, const T* __restrict__ ref,
       recs[j] = (x < W && y < H)
                     ? warp_geom::pack(
                           warp_geom::locate(
-                              m, static_cast<float>(x),
+                              m, static_cast<float>(x + x_off),
                               static_cast<float>(y),
                               dep_n[static_cast<size_t>(d0 + (j >> p_log2)) *
                                         hw +
@@ -230,7 +235,7 @@ template <typename T, int K>
 int launch_k(const T* src, const T* ref, const float* depth,
              const float* rt, const float* g, float* d_src, T* d_ref,
              int n, int d, int h, int w, int hs, int ws, int c, int groups,
-             int c_off, int cs, cudaStream_t stream) {
+             int x_off, int c_off, int cs, cudaStream_t stream) {
   const int lanes = cs / K;
   if (n > 65535) return static_cast<int>(cudaErrorInvalidValue);
   // P: the largest power of two with P * lanes <= kThreads; tile tw x th
@@ -250,8 +255,8 @@ int launch_k(const T* src, const T* ref, const float* depth,
   warp_corr_bwd_kernel<T, K><<<grid, (1 << p_log2) * lanes, rec * db,
                                stream>>>(src, ref, depth, rt, g, d_src,
                                          d_ref, d, h, w, hs, ws, c, groups,
-                                         c_off, cs, p_log2, tw_log2, tiles_x,
-                                         db);
+                                         x_off, c_off, cs, p_log2, tw_log2,
+                                         tiles_x, db);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,10 +265,11 @@ int launch_k(const T* src, const T* ref, const float* depth,
 template <typename T, int K>
 int launch(const T* src, const T* ref, const float* depth, const float* rt,
            const float* g, float* d_src, T* d_ref, int n, int d, int h,
-           int w, int hs, int ws, int c, int groups, cudaStream_t stream) {
+           int w, int hs, int ws, int c, int groups, int x_off,
+           cudaStream_t stream) {
   for (int c_off = 0; c_off < c; c_off += kThreads * K) {
     const int err = launch_k<T, K>(src, ref, depth, rt, g, d_src, d_ref, n,
-                                   d, h, w, hs, ws, c, groups, c_off,
+                                   d, h, w, hs, ws, c, groups, x_off, c_off,
                                    min(kThreads * K, c - c_off), stream);
     if (err != 0) return err;
   }
@@ -276,7 +282,7 @@ template <typename T>
 int launch_dtype(const void* src, const void* ref, const float* depth,
                  const float* rt, const float* g, float* d_src, void* d_ref,
                  int n, int d, int h, int w, int hs, int ws, int c,
-                 int groups, cudaStream_t stream) {
+                 int groups, int x_off, cudaStream_t stream) {
   const T* s = static_cast<const T*>(src);
   const T* r = static_cast<const T*>(ref);
   T* dr = static_cast<T*>(d_ref);
@@ -287,24 +293,25 @@ int launch_dtype(const void* src, const void* ref, const float* depth,
                    warp_geom::aligned(dr, 4 * sizeof(T));
   if (vec) {
     return launch<T, 4>(s, r, depth, rt, g, d_src, dr, n, d, h, w, hs, ws, c,
-                        groups, stream);
+                        groups, x_off, stream);
   }
   return launch<T, 1>(s, r, depth, rt, g, d_src, dr, n, d, h, w, hs, ws, c,
-                      groups, stream);
+                      groups, x_off, stream);
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes): dtype 0 = float32 features, 1 =
 // bfloat16; d_ref in the features' type; the depths, projections, cotangent
-// and d_src float32, d_src zero-filled. Returns the cudaError_t of the
-// launches (0 = ok).
+// and d_src float32, d_src zero-filled; x_off: the column offset of a width
+// shard (0 for a whole map). Returns the cudaError_t of the launches (0 =
+// ok).
 extern "C" int warp_corr_backward(int dtype, const void* src,
                                   const void* ref, const void* depth,
                                   const void* rt, const void* g, void* d_src,
                                   void* d_ref, int n, int d, int h, int w,
                                   int hs, int ws, int c, int groups,
-                                  void* stream) {
+                                  int x_off, void* stream) {
   if (n == 0 || h == 0 || w == 0 || c == 0) return 0;
   if (groups <= 0 || c % groups != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -316,11 +323,11 @@ extern "C" int warp_corr_backward(int dtype, const void* src,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch_dtype<float>(src, ref, dp, rp, gp, ds, d_ref, n, d, h, w,
-                               hs, ws, c, groups, st);
+                               hs, ws, c, groups, x_off, st);
   }
   if (dtype == 1) {
     return launch_dtype<__nv_bfloat16>(src, ref, dp, rp, gp, ds, d_ref, n, d,
-                                       h, w, hs, ws, c, groups, st);
+                                       h, w, hs, ws, c, groups, x_off, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,6 +29,12 @@ sources and the flags, and ctypes loads them. Nothing is built or loaded
 when this module is imported, so it imports on hosts without nvcc or a
 card.
 
+Width shards (parallel/spatial.py): K1 and K2 take the column offset
+x_off of ref's first column; the depths, ref, the output and d_ref are
+indexed by the local column x, the coordinates computed at x + x_off,
+and src is the full-width source (wider than ref), so K2's d_src comes
+out full width.
+
 Gradients: warp_corr() runs K1 inside WarpCorr (K3 inside WarpCorrPre),
 torch.autograd.Functions whose backward launches K2 for the feature
 gradients and gives the projections, the depths and the corner operands
@@ -150,12 +156,12 @@ def _load():
         libs = build()
         fwd = ctypes.CDLL(str(libs["warp_corr"]))
         fwd.warp_corr_forward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
             + [ctypes.c_void_p])
         fwd.warp_corr_forward.restype = ctypes.c_int
         bwd = ctypes.CDLL(str(libs["warp_corr_bwd"]))
         bwd.warp_corr_backward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
             + [ctypes.c_void_p])
         bwd.warp_corr_backward.restype = ctypes.c_int
         _lib, _bwd_lib = fwd, bwd
@@ -191,7 +197,7 @@ def projection_scalars(src_pair, ref_pair):
 
 
 def warp_corr(src_fea, ref_fea, src_pair, ref_pair, depth_values, groups,
-              batch_rows: bool = True):
+              batch_rows: bool = True, x_off: int = 0):
     """Kernel launch of warp_and_correlate.
 
     src_fea [N, Hs, Ws, C], ref_fea [N, H, W, C]: contiguous, float32 or
@@ -200,22 +206,27 @@ def warp_corr(src_fea, ref_fea, src_pair, ref_pair, depth_values, groups,
     [N, 2, 4, 4].
     batch_rows=True launches K1 (CUDA tensors only); batch_rows=False goes
     through warp_corr_pre (K3 on CUDA tensors, its plain version on CPU
-    tensors).
+    tensors), which takes no column offset.
+    x_off: the global column of ref's first column (a width shard's
+    offset; src is then the full-width source).
     Returns [N, D, H, W, G] float32: a view of a contiguous
     [N, G, D, H, W] buffer, differentiable in the two feature maps.
     """
     if not batch_rows:
+        if x_off:
+            raise ValueError("warp_corr: batch_rows=False takes no column "
+                             "offset")
         return warp_corr_pre(src_fea, ref_fea, src_pair, ref_pair,
                              depth_values, groups)
     return warp_corr_rt(src_fea, ref_fea,
                         projection_scalars(src_pair, ref_pair),
-                        depth_values, groups)
+                        depth_values, groups, x_off)
 
 
-def warp_corr_rt(src_fea, ref_fea, rt, depth_values, groups):
+def warp_corr_rt(src_fea, ref_fea, rt, depth_values, groups, x_off=0):
     """warp_corr with the projection already packed as [N, 12] scalars."""
-    _check_forward(src_fea, ref_fea, rt, depth_values, groups)
-    return WarpCorr.apply(src_fea, ref_fea, rt, depth_values, groups)
+    _check_forward(src_fea, ref_fea, rt, depth_values, groups, x_off)
+    return WarpCorr.apply(src_fea, ref_fea, rt, depth_values, groups, x_off)
 
 
 class WarpCorr(torch.autograd.Function):
@@ -224,10 +235,11 @@ class WarpCorr(torch.autograd.Function):
     no_grad."""
 
     @staticmethod
-    def forward(ctx, src_fea, ref_fea, rt, depth_values, groups):
-        out = _launch_forward(src_fea, ref_fea, rt, depth_values, groups)
+    def forward(ctx, src_fea, ref_fea, rt, depth_values, groups, x_off=0):
+        out = _launch_forward(src_fea, ref_fea, rt, depth_values, groups,
+                              x_off)
         ctx.save_for_backward(src_fea, ref_fea, rt, depth_values)
-        ctx.groups = groups
+        ctx.groups, ctx.x_off = groups, x_off
         return out.permute(0, 2, 3, 4, 1)
 
     @staticmethod
@@ -237,10 +249,10 @@ class WarpCorr(torch.autograd.Function):
         if not g.is_contiguous():
             g = g.contiguous()
         d_src, d_ref = warp_corr_backward(src_fea, ref_fea, rt, depth_values,
-                                          g, ctx.groups)
+                                          g, ctx.groups, ctx.x_off)
         need_src, need_ref = ctx.needs_input_grad[:2]
         return (d_src if need_src else None, d_ref if need_ref else None,
-                None, None, None)
+                None, None, None, None)
 
 
 def _check_cuda(what, tensors):
@@ -256,7 +268,7 @@ def _check_cuda(what, tensors):
     return dev
 
 
-def _check_forward(src_fea, ref_fea, rt, depth_values, groups):
+def _check_forward(src_fea, ref_fea, rt, depth_values, groups, x_off=0):
     _check_cuda("warp_corr", (src_fea, ref_fea, rt, depth_values))
     if src_fea.dtype not in _DTYPE_CODE or ref_fea.dtype != src_fea.dtype:
         raise TypeError(f"warp_corr: features must both be float32 or "
@@ -276,9 +288,11 @@ def _check_forward(src_fea, ref_fea, rt, depth_values, groups):
     if groups <= 0 or c % groups != 0 or hs == 0 or ws == 0:
         raise ValueError(f"warp_corr: C={c} not divisible by G={groups} "
                          f"or empty source")
+    if not 0 <= x_off < 2 ** 24 - w:
+        raise ValueError(f"warp_corr: column offset {x_off} out of range")
 
 
-def _launch_forward(src_fea, ref_fea, rt, depth_values, groups):
+def _launch_forward(src_fea, ref_fea, rt, depth_values, groups, x_off=0):
     """K1: returns the contiguous [N, G, D, H, W] float32 buffer."""
     global launches
     n, hs, ws, c = src_fea.shape
@@ -291,7 +305,7 @@ def _launch_forward(src_fea, ref_fea, rt, depth_values, groups):
         err = lib.warp_corr_forward(
             _DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
             ref_fea.data_ptr(), depth_values.data_ptr(), rt.data_ptr(),
-            out.data_ptr(), n, d, h, w, hs, ws, c, groups, stream)
+            out.data_ptr(), n, d, h, w, hs, ws, c, groups, x_off, stream)
     if err != 0:
         raise RuntimeError(f"warp_corr: kernel launch failed, cudaError {err}")
     launches += 1
@@ -299,11 +313,12 @@ def _launch_forward(src_fea, ref_fea, rt, depth_values, groups):
     return out
 
 
-def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups):
+def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups,
+                       x_off=0):
     """K2: the feature gradients of warp_corr_rt (CUDA tensors only).
 
-    src_fea, ref_fea, rt, depth_values as for warp_corr_rt (float32 or
-    bfloat16 features, read as they are); g [N, G, D, H, W] contiguous
+    src_fea, ref_fea, rt, depth_values, x_off as for warp_corr_rt (float32
+    or bfloat16 features, read as they are); g [N, G, D, H, W] contiguous
     float32, the cotangent of the forward's float32 output in its buffer
     order. K2 sums both gradients in float32: d_ref in registers, rounded
     once as it is stored; d_src by atomics into a float32 buffer, rounded
@@ -312,7 +327,7 @@ def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups):
     dtype, as autograd wants them.
     """
     global bwd_launches
-    _check_forward(src_fea, ref_fea, rt, depth_values, groups)
+    _check_forward(src_fea, ref_fea, rt, depth_values, groups, x_off)
     if g.dtype != torch.float32:
         raise TypeError(f"warp_corr_backward: the cotangent must be "
                         f"float32, got {g.dtype}")
@@ -333,7 +348,7 @@ def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups):
             _DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
             ref_fea.data_ptr(), depth_values.data_ptr(), rt.data_ptr(),
             g.data_ptr(), d_src.data_ptr(), d_ref.data_ptr(), n, d, h, w, hs,
-            ws, c, groups, stream)
+            ws, c, groups, x_off, stream)
     if err != 0:
         raise RuntimeError(f"warp_corr_backward: kernel launch failed, "
                            f"cudaError {err}")
@@ -423,7 +438,7 @@ class WarpCorrPre(torch.autograd.Function):
                 depth_values, groups):
         out = launch_pre(src_fea, ref_fea, xi, yi, fx, fy, valid, groups)
         ctx.save_for_backward(src_fea, ref_fea, rt, depth_values)
-        ctx.groups = groups
+        ctx.groups, ctx.x_off = groups, 0
         return out.permute(0, 2, 3, 4, 1)
 
     @staticmethod

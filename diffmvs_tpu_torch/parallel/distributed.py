@@ -1,5 +1,5 @@
-"""Data-parallel training across processes (counterpart of
-diffmvs_tpu/parallel/mesh.py and the JAX package's data-parallel step).
+"""Data- and width-parallel training across processes (counterpart of
+diffmvs_tpu/parallel/mesh.py and the JAX package's GSPMD step).
 
 The JAX package shards each global batch over the "data" axis of a device
 mesh. Its default training step (warp_kernel="xla") trains through GSPMD,
@@ -13,8 +13,17 @@ train/step.train_step(dp=...) draws the diffusion noise of the global
 batch on every rank and normalizes each rank's loss by the global batch's
 mask counts, so a step equals the single-process step on the whole batch.
 
-Width sharding (the mesh's "space" axis, TrainConfig.sp) is not ported: it
-needs convolution halo exchanges, and one H100 holds the training cell.
+The mesh is (dp, sp) over dp * sp processes: rank r = d * sp + s holds
+rows d of each global batch and column shard s of every map (the "space"
+axis, TrainConfig.sp). The sp ranks that share rows d form a space group
+(parallel/spatial.py: the halo exchanges, the gathers and the GroupNorm
+moments run over it). Every reduction over the data axis runs over the
+whole world instead, each rank holding its block of rows and columns:
+SyncBatchNorm's statistics are those of the global batch at full width,
+DDP's gradient mean over the world times the world-size scaling of the
+masked means (train/step.global_denominators) sums the space ranks'
+gradients and averages the data ranks', and the scalars are world means.
+So no data-axis group is built.
 """
 
 from __future__ import annotations
@@ -28,24 +37,44 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffmvs_tpu_torch.api import resolve_device
+from diffmvs_tpu_torch.parallel import spatial
 
 
 def resolve_mesh(dp: int, sp: int, world_size: int) -> int:
     """The data-parallel size TrainConfig's (dp, sp) ask for in a world of
-    world_size processes: dp = -1 takes the world size; any other dp must
-    equal it; sp must be 1."""
-    if sp != 1:
-        raise ValueError(
-            f"sp={sp}: width sharding is not ported (it needs convolution "
-            f"halo exchanges, and one card holds the training cell); use "
-            f"sp=1")
+    world_size processes: dp * sp must be the world size; dp = -1 takes
+    world_size / sp."""
+    if sp < 1 or (dp < 1 and dp != -1):
+        raise ValueError(f"dp={dp}, sp={sp}: mesh sizes are positive (dp "
+                         f"-1: the world size / sp)")
     if dp == -1:
-        return world_size
-    if dp != world_size:
-        raise ValueError(f"dp={dp} but the world has {world_size} "
+        if world_size % sp:
+            raise ValueError(
+                f"sp={sp} but the world has {world_size} process(es): start "
+                f"a multiple of {sp} processes (torchrun --nproc_per_node "
+                f"{sp} * dp)")
+        dp = world_size // sp
+    if dp * sp != world_size:
+        raise ValueError(f"dp={dp} x sp={sp} but the world has {world_size} "
                          f"process(es): start one process per rank "
-                         f"(torchrun --nproc_per_node {dp})")
+                         f"(torchrun --nproc_per_node {dp * sp})")
     return dp
+
+
+def space_group(sp: int):
+    """This rank's spatial.SpaceGroup in the initialized world: ranks
+    d * sp ... d * sp + sp - 1 share rows d. Every rank creates every
+    group, as new_group asks. None for sp = 1."""
+    if sp == 1:
+        return None
+    rank, world_size = dist.get_rank(), dist.get_world_size()
+    resolve_mesh(-1, sp, world_size)
+    mine = None
+    for d in range(world_size // sp):
+        group = dist.new_group(list(range(d * sp, (d + 1) * sp)))
+        if d == rank // sp:
+            mine = group
+    return spatial.SpaceGroup(mine, rank % sp, sp)
 
 
 def backend_for(device) -> str:
@@ -202,19 +231,27 @@ def convert_sync_batchnorm(module: nn.Module):
 
 
 class DataParallel:
-    """The model's data-parallel training view in the initialized (default)
-    process group: its BatchNorms converted to SyncBatchNorm (in place)
-    and a DistributedDataParallel wrapper (`module`) with
-    broadcast_buffers=False: every rank updates the running statistics
-    alike from the global batch, so no rank's buffers overwrite another's.
-    The model itself stays unwrapped, for its state_dict and for
-    validation."""
+    """The model's training view on the (dp, sp) mesh of the initialized
+    (default) process group: with a space group (space_group(sp), sp > 1)
+    its convolutions and GroupNorms converted to their width-sharded forms
+    (spatial.shard_width, in place), its BatchNorms to SyncBatchNorm over
+    the world (in place), and a DistributedDataParallel wrapper (`module`)
+    with broadcast_buffers=False: every rank updates the running
+    statistics alike from the global batch, so no rank's buffers
+    overwrite another's. The model itself stays unwrapped, for its
+    state_dict and for validation."""
 
-    def __init__(self, model: nn.Module):
+    def __init__(self, model: nn.Module, space=None):
+        self.space = space
+        if space is not None:
+            spatial.shard_width(model, space)
         convert_sync_batchnorm(model)
         dev = next(model.parameters()).device
         self.rank = dist.get_rank()
         self.world_size = dist.get_world_size()
+        sp = 1 if space is None else space.size
+        self.data_size = resolve_mesh(-1, sp, self.world_size)
+        self.data_rank = self.rank // sp
         self.module = nn.parallel.DistributedDataParallel(
             model, device_ids=[dev] if dev.type == "cuda" else None,
             broadcast_buffers=False)
@@ -226,11 +263,35 @@ class DataParallel:
     def mean(self, scalars: Dict[str, torch.Tensor]) -> Dict[str,
                                                               torch.Tensor]:
         """Each scalar averaged over the ranks (JAX's pmean)."""
-        keys = list(scalars)
-        total = self.sum(torch.stack([torch.as_tensor(scalars[k]).float()
-                                      for k in keys]))
-        return dict(zip(keys, (total / self.world_size).unbind(0)))
+        return _mean(scalars, self.sum, self.world_size)
+
+    def full_width(self, maps: Dict[str, torch.Tensor]) -> Dict[
+            str, torch.Tensor]:
+        """Each [..., w] map of this rank's columns (at full resolution or
+        a stride of it) at full width: a collective over the space group,
+        without gradient."""
+        if self.space is None:
+            return maps
+        w = max(v.shape[-1] for v in maps.values())
+        shard = self.space.shard(w, next(iter(maps.values())).device)
+        with torch.no_grad():
+            return {k: shard.gather(v, -1, w // v.shape[-1])
+                    for k, v in maps.items()}
 
     def barrier(self):
         dist.barrier()
+
+
+def _mean(scalars, total, parts):
+    """Each scalar's sum by `total` over `parts` ranks, divided by parts."""
+    keys = list(scalars)
+    sums = total(torch.stack([torch.as_tensor(scalars[k]).float()
+                              for k in keys]))
+    return dict(zip(keys, (sums / parts).unbind(0)))
+
+
+def space_mean(scalars, space):
+    """Each scalar averaged over the space group (no gradient)."""
+    return _mean(scalars, lambda t: spatial.all_reduce(t.detach().clone(),
+                                                       space), space.size)
 

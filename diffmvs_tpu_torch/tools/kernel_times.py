@@ -138,13 +138,14 @@ def bwd_bound(n, d, h, w, hs, ws, c, g, inside, corners, feat_bytes=4):
     return bound(nbytes, 20 * n * d * h * w + 9 * c * inside + 2 * c * corners)
 
 
-def sample_counts(sp, rp, depth, hs, ws):
+def sample_counts(sp, rp, depth, hs, ws, x_off=0):
     """(samples, samples with a corner in the image, in-image corners) of
-    one warp call: the work K2 does on these inputs."""
+    one warp call (x_off: a width shard's column offset): the work K2 does
+    on these inputs."""
     from diffmvs_tpu_torch.geometry.transforms import relative_projection
     from diffmvs_tpu_torch.geometry.warp import plane_sweep_coords
     rot, trans = relative_projection(sp.float(), rp.float())
-    x, y = plane_sweep_coords(rot, trans, depth)
+    x, y = plane_sweep_coords(rot, trans, depth, x_off)
     x0, y0 = x.floor(), y.floor()
     inside = (x0 >= -1) & (x0 <= ws - 1) & (y0 >= -1) & (y0 <= hs - 1)
     vx = (x0 >= 0, x0 <= ws - 2)
@@ -153,7 +154,7 @@ def sample_counts(sp, rp, depth, hs, ws):
     return x.numel(), int(inside.sum()), corners
 
 
-def k2_global_atomics(sp, rp, depth, hs, ws, c):
+def k2_global_atomics(sp, rp, depth, hs, ws, c, x_off=0):
     """(128-bit global atomics K2 sends on these inputs, the scalar ones of
     one atomic per channel per in-image corner that the design before it
     sent). K2 (warp_corr_bwd.cu) holds each corner slot's sum in registers
@@ -164,7 +165,7 @@ def k2_global_atomics(sp, rp, depth, hs, ws, c):
     from diffmvs_tpu_torch.geometry.transforms import relative_projection
     from diffmvs_tpu_torch.geometry.warp import plane_sweep_coords
     rot, trans = relative_projection(sp.float(), rp.float())
-    x, y = plane_sweep_coords(rot, trans, depth)
+    x, y = plane_sweep_coords(rot, trans, depth, x_off)
     x0, y0 = x.floor(), y.floor()
     inside = (x0 >= -1) & (x0 <= ws - 1) & (y0 >= -1) & (y0 <= hs - 1)
     x0 = torch.where(inside, x0, 0.0).long()

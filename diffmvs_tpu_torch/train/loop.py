@@ -14,7 +14,11 @@ CUDA unless device="cpu").
 Under data parallelism (dp, parallel/distributed.DataParallel) every rank
 runs the steps on its rows of each global batch; rank 0 alone logs, saves
 images and checkpoints and runs the validation over the whole val loader,
-while the other ranks wait at a barrier.
+while the other ranks wait at a barrier. With width sharding (dp.space)
+each rank holds its columns of those rows: the ranks of rank 0's space
+group run the validation together (their loaders giving each its
+columns), and at an image step every space group gathers its maps to
+full width, which rank 0 saves, as JAX's global arrays log them.
 """
 
 from __future__ import annotations
@@ -55,25 +59,28 @@ class ScalarLogger:
                     self.tb.add_scalar(f"{mode}/{k}", v, step)
 
 
-def _eval_means(state, cfg, val_loader, seed: int):
+def _eval_means(state, cfg, val_loader, seed: int, space=None):
     gen = torch.Generator(device=state.device).manual_seed(seed)
     meter = DictAverageMeter()
     for batch in val_loader:
         t0 = time.time()
         scalars = {k: float(v) for k, v in
-                   eval_step(state, cfg, batch, gen).items()}
+                   eval_step(state, cfg, batch, gen, space).items()}
         scalars["time"] = time.time() - t0
         meter.update(scalars)
     return meter.mean()
 
 
-def run_eval(state, cfg, val_loader, logdir: str = None):
+def run_eval(state, cfg, val_loader, logdir: str = None, space=None):
     """Eval-only pass over the validation loader (the reference's
-    `--mode test`). Returns the mean scalars."""
-    means = _eval_means(state, cfg, val_loader, cfg.seed)
-    print("final", means)
-    if logdir:
-        ScalarLogger(logdir).log("eval", means, 0)
+    `--mode test`). Returns the mean scalars. space: the space group of a
+    width-sharded model, whose ranks all run it on their columns; its
+    rank 0 prints and logs."""
+    means = _eval_means(state, cfg, val_loader, cfg.seed, space)
+    if space is None or space.rank == 0:
+        print("final", means)
+        if logdir:
+            ScalarLogger(logdir).log("eval", means, 0)
     return means
 
 
@@ -84,8 +91,12 @@ def run_training(state, cfg, train_loader, val_loader, logdir: str,
     cfg.eval_freq. The train log carries each step's learning rate ("lr").
     on_step(global_step, scalars), if given, runs after every step with
     the step's device scalars. dp: a DataParallel over state.model, with
-    train_loader giving this rank's rows. Returns the state."""
+    train_loader giving this rank's rows (and columns, with dp.space) and
+    val_loader, on the ranks of rank 0's space group, their columns.
+    Returns the state."""
     lead = dp is None or dp.rank == 0
+    space = None if dp is None else dp.space
+    validates = dp is None or dp.data_rank == 0
     logger = ScalarLogger(logdir) if lead else None
     gen = torch.Generator(device=state.device).manual_seed(cfg.seed)
     total_epochs = cfg.epochs if cfg.train_epochs == -1 else cfg.train_epochs
@@ -106,9 +117,12 @@ def run_training(state, cfg, train_loader, val_loader, logdir: str,
                 print(f"Epoch {epoch}/{total_epochs}, Iter {batch_idx}/"
                       f"{steps_per_epoch}, loss = {host['loss']:.3f}, "
                       f"time = {time.time() - t0:.3f}")
-            if lead and global_step % (50 * cfg.summary_freq) == 0:
-                save_images(logdir, "train", images, global_step,
-                            tb=logger.tb)
+            if global_step % (50 * cfg.summary_freq) == 0:
+                if dp is not None:
+                    images = dp.full_width(images)
+                if lead:
+                    save_images(logdir, "train", images, global_step,
+                                tb=logger.tb)
             if on_step is not None:
                 on_step(global_step, scalars)
         state.epoch = epoch + 1
@@ -116,11 +130,13 @@ def run_training(state, cfg, train_loader, val_loader, logdir: str,
         if lead and (epoch + 1) % cfg.save_freq == 0:
             print(f"saved {save_checkpoint(logdir, state, epoch)}")
 
-        if lead and (epoch % cfg.eval_freq == 0
-                     or epoch == total_epochs - 1):
-            means = _eval_means(state, cfg, val_loader, cfg.seed + epoch + 1)
-            logger.log("full_test", means, (epoch + 1) * steps_per_epoch)
-            print("eval:", means)
+        if validates and (epoch % cfg.eval_freq == 0
+                          or epoch == total_epochs - 1):
+            means = _eval_means(state, cfg, val_loader, cfg.seed + epoch + 1,
+                                space)
+            if lead:
+                logger.log("full_test", means, (epoch + 1) * steps_per_epoch)
+                print("eval:", means)
         if dp is not None:
             dp.barrier()
 

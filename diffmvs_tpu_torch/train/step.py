@@ -15,6 +15,15 @@ world size, which DDP's mean of the gradients divides out), BatchNorm
 syncs over the global batch, and the scalars are averaged over the ranks
 (pmean). A step then equals the single-process step on the global batch.
 With accum_steps > 1 each rank splits its own rows into microbatches.
+
+Width sharding (dp.space, the mesh's "space" axis): each rank holds its
+rows and its columns of the global batch (parallel/spatial.column_slice)
+and the model is width-sharded. The noise is drawn at full width and
+sliced to the rank's columns, the counts of the masked means and the
+world-size scaling span both axes, so DDP's mean over the world sums the
+space ranks' gradients and averages the data ranks'; the per-image
+metrics sum their numerators and counts over the space group. eval_step
+takes a space group alone: its ranks evaluate the same rows together.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import numpy as np
 import torch
 
 from diffmvs_tpu_torch.models.loss import compute_inverse_loss
+from diffmvs_tpu_torch.parallel import spatial
+from diffmvs_tpu_torch.parallel.distributed import space_mean
 from diffmvs_tpu_torch.utils.metrics import abs_depth_error
 
 
@@ -63,15 +74,30 @@ def forward_loss(model, cfg, batch, generator=None, train_overrides=None,
     return loss, loss_dict, outputs
 
 
-def global_denominators(mask, dp):
-    """{stage: the global batch's mask count (>= 1) / world size}: each
-    rank's masked sums over these are the world size times its share of
-    the global masked means, so the ranks' mean is the global loss."""
+def global_denominators(mask, total, parts: int):
+    """{stage: the mask count over `parts` ranks (summed by `total`; >= 1)
+    / parts}: each rank's masked sums over these are `parts` times its
+    share of the masked means over every rank's rows and columns, so the
+    ranks' mean is the global loss."""
     keys = sorted(mask)
-    counts = dp.sum(torch.stack([(mask[k] > 0.5).sum().float()
-                                 for k in keys]))
-    return {k: c.clamp_min(1.0) / dp.world_size
+    counts = total(torch.stack([(mask[k] > 0.5).sum().float()
+                                for k in keys]))
+    return {k: c.clamp_min(1.0) / parts
             for k, c in zip(keys, counts.unbind(0))}
+
+
+def _space_sum(space):
+    return lambda t: spatial.all_reduce(t.detach().clone(), space)
+
+
+def _local_overrides(overrides, rows, shard):
+    """Rows (i, parts) and, on a width shard, the columns of the global
+    batch's {stage: (t [B], noise [B, Hs, Ws])}."""
+    overrides = _split(overrides, rows[1], rows[0])
+    if shard is None:
+        return overrides
+    return {s: (t, shard.at(8 // 2 ** s).take(n))
+            for s, (t, n) in overrides.items()}
 
 
 def compute_gradients(model, cfg, batch,
@@ -97,7 +123,8 @@ def compute_gradients(model, cfg, batch,
         mb = batch if accum == 1 else _split(batch, accum, i)
         ov = (train_overrides if accum == 1 or train_overrides is None
               else _split(train_overrides, accum, i))
-        dens = None if dp is None else global_denominators(mb["mask"], dp)
+        dens = (None if dp is None
+                else global_denominators(mb["mask"], dp.sum, dp.world_size))
         sync = (dp is None or i == accum - 1)
         with contextlib.nullcontext() if sync else model.no_sync():
             loss, loss_dict, outputs = forward_loss(model, cfg, mb,
@@ -110,17 +137,18 @@ def compute_gradients(model, cfg, batch,
             outputs, mb)
 
 
-def _scalars(loss, loss_dict, outputs, batch):
+def _scalars(loss, loss_dict, outputs, batch, reduce=None):
+    """reduce: None, or the sum over a space group (width shards)."""
     depth_est = outputs["depth"][-1].detach()
     return {
         "loss": loss,
         "depth_loss": loss_dict[f"l{len(outputs['depth']) - 1}"],
         "init_abs_depth_error": abs_depth_error(
             outputs["depth"][0].detach(), batch["depth"]["stage1"],
-            batch["mask"]["stage1"] > 0.5),
+            batch["mask"]["stage1"] > 0.5, reduce),
         "final_depth_error": abs_depth_error(
             depth_est, batch["depth"]["stage4"],
-            batch["mask"]["stage4"] > 0.5),
+            batch["mask"]["stage4"] > 0.5, reduce),
         **loss_dict,
     }
 
@@ -131,8 +159,9 @@ def train_step(state, cfg, batch,
     """One optimizer update of `state` (in place) from `batch`.
 
     dp: a parallel.distributed.DataParallel over state.model; `batch` is
-    then this rank's rows of the global batch, and train_overrides (or,
-    without them, the draw from `generator`) the global batch's.
+    then this rank's rows (and, with dp.space, its columns) of the global
+    batch, and train_overrides (or, without them, the draw from
+    `generator`) the global batch's.
 
     Returns (scalars, images): dicts of device tensors. scalars adds the
     gradient norm before clipping ("grad_norm") to the reference's set;
@@ -140,18 +169,24 @@ def train_step(state, cfg, batch,
     """
     batch = batch_to_device(batch, state.device)
     model = state.model
+    reduce = None
     if dp is not None:
         model = dp.module
         b, _, h, w = batch["imgs"].shape[:4]
+        shard = (None if dp.space is None
+                 else dp.space.shard(w, state.device))
+        if shard is not None:
+            w, reduce = shard.width, _space_sum(dp.space)
         if train_overrides is None:
             train_overrides = state.model.draw_train_overrides(
-                b * dp.world_size, h, w, generator)
-        train_overrides = _split(train_overrides, dp.world_size, dp.rank)
+                b * dp.data_size, h, w, generator)
+        train_overrides = _local_overrides(
+            train_overrides, (dp.data_rank, dp.data_size), shard)
     loss, loss_dict, outputs, mb = compute_gradients(
         model, cfg, batch, generator, train_overrides, dp)
     grad_norm = state.apply_gradients(cfg.grad_clip)
     with torch.no_grad():
-        scalars = _scalars(loss, loss_dict, outputs, mb)
+        scalars = _scalars(loss, loss_dict, outputs, mb, reduce)
         scalars["grad_norm"] = grad_norm
         if dp is not None:
             scalars = dp.mean(scalars)
@@ -169,18 +204,26 @@ def train_step(state, cfg, batch,
 
 
 def eval_step(state, cfg, batch,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None, space=None):
     """Validation: DDIM inference with the full intermediate lists (the
     reference's test_sample_depth), BatchNorm in eval mode. Returns the
-    scalars as device tensors."""
+    scalars as device tensors. space: the model's space group (a
+    width-sharded model); `batch` is then this rank's columns, and the
+    scalars are those of the whole images, the same on every rank of the
+    group."""
     batch = batch_to_device(batch, state.device)
     model = state.model.eval()
     with torch.no_grad():
         outputs = model(batch["imgs"], batch["proj_matrices"],
                         batch["depth_values"], generator=generator,
                         train=False, export=False)
+        dens = reduce = None
+        if space is not None:
+            reduce = _space_sum(space)
+            dens = global_denominators(batch["mask"], reduce, space.size)
         loss, loss_dict = compute_inverse_loss(
             outputs["depth"], outputs["conf"], batch["depth"],
             batch["mask"], batch["depth_values"], cfg.model.stage_iters,
-            cfg.loss_rate, cfg.conf_weight)
-        return _scalars(loss, loss_dict, outputs, batch)
+            cfg.loss_rate, cfg.conf_weight, dens)
+        scalars = _scalars(loss, loss_dict, outputs, batch, reduce)
+        return scalars if space is None else space_mean(scalars, space)

@@ -2,7 +2,8 @@
 
 Counterpart of diffmvs_tpu/utils/metrics.py: per-image masked means,
 averaged over the batch, written as weighted means (no boolean indexing,
-so nothing waits for the host).
+so nothing waits for the host). On a width shard, `reduce` sums each
+image's numerator and count over the space group first.
 """
 
 from __future__ import annotations
@@ -12,17 +13,20 @@ from typing import Dict
 import torch
 
 
-def _per_image_masked_mean(value, mask):
-    """value, mask: [B, H, W] -> mean over batch of per-image masked means."""
+def _per_image_masked_mean(value, mask, reduce=None):
+    """value, mask: [B, H, W] -> mean over batch of per-image masked means.
+    reduce: None, or a function summing a tensor over the other shards of
+    these images (parallel/spatial.py)."""
     m = mask.to(value.dtype)
-    num = (value * m).sum(dim=(1, 2))
-    den = m.sum(dim=(1, 2)).clamp_min(1.0)
-    return (num / den).mean()
+    sums = torch.stack([(value * m).sum(dim=(1, 2)), m.sum(dim=(1, 2))])
+    if reduce is not None:
+        sums = reduce(sums)
+    return (sums[0] / sums[1].clamp_min(1.0)).mean()
 
 
-def abs_depth_error(depth_est, depth_gt, mask):
+def abs_depth_error(depth_est, depth_gt, mask, reduce=None):
     """Mean absolute depth error over masked pixels, per image then batch."""
-    return _per_image_masked_mean((depth_est - depth_gt).abs(), mask)
+    return _per_image_masked_mean((depth_est - depth_gt).abs(), mask, reduce)
 
 
 def threshold_error(depth_est, depth_gt, mask, thres):

@@ -379,8 +379,12 @@ def test_mesh_and_backend_resolution(monkeypatch):
     assert distributed.resolve_mesh(2, 1, 2) == 2
     with pytest.raises(ValueError, match="world has 1"):
         distributed.resolve_mesh(2, 1, 1)
-    with pytest.raises(ValueError, match="width sharding"):
+    assert distributed.resolve_mesh(-1, 2, 4) == 2
+    assert distributed.resolve_mesh(2, 2, 4) == 2
+    with pytest.raises(ValueError, match="world has 1 process"):
         distributed.resolve_mesh(1, 2, 1)
+    with pytest.raises(ValueError, match="world has 3 process"):
+        distributed.resolve_mesh(-1, 2, 3)
     assert distributed.backend_for("cuda") == "nccl"
     assert distributed.backend_for("cuda:1") == "nccl"
     assert distributed.backend_for("cpu") == "gloo"

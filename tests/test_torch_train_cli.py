@@ -196,9 +196,10 @@ def test_loadckpt_logdir_reports_dropped_keys(trained, tmp_path, capsys):
 
 
 def test_main_refuses_what_it_cannot_run(scene, monkeypatch):
-    """--sp > 1 and a --dp other than the world size raise; so does the
-    default device without a card (no fall-back to the CPU)."""
-    with pytest.raises(ValueError, match="width sharding"):
+    """--sp 2 in a world of one process and a --dp other than the world
+    size raise; so does the default device without a card (no fall-back
+    to the CPU)."""
+    with pytest.raises(ValueError, match="world has 1 process.*torchrun"):
         train.main(_argv(scene, "--sp", "2"))
     with pytest.raises(ValueError, match="torchrun"):
         train.main(_argv(scene, "--dp", "2"))
