@@ -18,7 +18,10 @@ Phases (one line each; any failure exits non-zero):
                      1, 8 and above 256 (launches over group slices),
                      degenerate depths; the width shards' shapes (rank 1
                      of 2 at x_off = W/2, the source twice as wide as
-                     ref), f32 and bf16, timed as the others
+                     ref), f32 and bf16, timed as the others; the bench
+                     entry's batch, N = 16 at the sweep / stage-2 /
+                     stage-3 shapes, each sample with its own view pair,
+                     features and depths, f32 and bf16
   4. train_kernel -- K2 against autograd of the plain version at the
                      training shapes (B=4 at 512x640: the sweep and the two
                      refinement stages) with degenerate depths, f32 and
@@ -37,24 +40,29 @@ Phases (one line each; any failure exits non-zero):
                      seed 0): 3 requests through DepthRunner; 28 K1
                      launches each; the first request again with the plain
                      warp in place of the kernel must agree
-  7. main_bf16    -- the same in bf16 compute (the configuration bench.py
-                     serves), beside main's maps/s and peak memory
-  8. train_small  -- one train step of the port on CUDA against the same
+  7. main_bf16    -- the same in bf16 compute, beside main's maps/s and
+                     peak memory
+  8. main_b16     -- one forward of the bench entry's main cell (bf16, B =
+                     16, 1152x1600, 5 views, 48/384), each sample with its
+                     own baselines, whose warp runs K1 and holds each of
+                     its 28 results against the plain warp on the same
+                     inputs
+  9. train_small  -- one train step of the port on CUDA against the same
                      step on the CPU at 64x96 (same weights, batch,
                      timesteps and noise), f32, and bf16 with remat:
                      loss and gradient direction
-  9. train        -- the training cell: CasDiffMVS f32, B=4, 5 views,
+ 10. train        -- the training cell: CasDiffMVS f32, B=4, 5 views,
                      512x640, 48/384 hypotheses, random init from seed 0,
                      run_training over 5 steps (the first a warm-up): 28
                      K1 + 28 K2 launches and a finite loss and gradient
                      norm every step; one step's gradients against the
                      same step with the plain warp in place of the kernels
- 10. train_bf16   -- the same in bf16 compute with remat (the configuration
+ 11. train_bf16   -- the same in bf16 compute with remat (the configuration
                      bench.py trains in): 52 K1 (the backward recomputes
                      each refinement iteration) + 28 K2 launches a step;
                      also one step's gradients with remat off; samples/s
                      and peak memory beside train's
- 11. k3_kernel    -- K3 and its operand and projection kernels, warp_corr(
+ 12. k3_kernel    -- K3 and its operand and projection kernels, warp_corr(
                      ..., batch_rows=False), their only path: the projection
                      kernel bit for bit against projection_scalars; K3
                      against its plain version and against K1 on the same
@@ -69,7 +77,7 @@ Phases (one line each; any failure exits non-zero):
                      in f32 and bf16, G = 1, 8, 257 and 520, misaligned
                      bases); the gradients through K3 against those through
                      K1 (both K2) at the training stage-3 shape
- 12. export       -- the scene export entry point as a user runs it:
+ 13. export       -- the scene export entry point as a user runs it:
                      cli.test.main on a synthetic DTU-layout scan of 7 views
                      at 1152x1600 (uint8 .npy serving caches), CasDiffMVS
                      f32 48/384, 5 views per depth map, random weights from
@@ -80,7 +88,7 @@ Phases (one line each; any failure exits non-zero):
                      accuracy/completeness against a plane on card and CPU;
                      views/s and its split into load, inference, write and
                      fusion on the host's and the card's clock
- 13. train_cli    -- the training entry point through the data layer:
+ 14. train_cli    -- the training entry point through the data layer:
                      cli.train.main on a synthetic DTU training scan (5
                      views x 7 lights, 512x640 PNGs, 1200x1600 depth and
                      visibility), CasDiffMVS f32, B=4, 48/384, 2 loader
@@ -91,16 +99,16 @@ Phases (one line each; any failure exits non-zero):
                      checkpoints; samples/s beside train's, the host gaps
                      between steps one by one with the loop's image saving
                      in each, peak memory
- 14. train_cli_blend -- cli.train on a synthetic BlendedMVS scan at 576x768,
+ 15. train_cli_blend -- cli.train on a synthetic BlendedMVS scan at 576x768,
                      B=2, 2 steps from train_cli's checkpoint through
                      --loadckpt's strict .ckpt path; its step times and
                      the gap between them
- 15. ddp          -- the data-parallel step (SyncBatchNorm, DDP, the global
+ 16. ddp          -- the data-parallel step (SyncBatchNorm, DDP, the global
                      batch's noise) in an NCCL group of one on 127.0.0.1
                      against the plain step, two steps of the training cell:
                      loss rel < 1e-5, gradient cosine > 0.9999, BatchNorm
                      running statistics within 1e-5 after each step
- 16. sp           -- width sharding, sp = 2: two ranks on the one card in a
+ 17. sp           -- width sharding, sp = 2: two ranks on the one card in a
                      gloo group (NCCL takes one rank per card), spawned
                      with a timeout and killed on it; gloo's all_gather
                      and all_reduce on CUDA tensors checked first. The
@@ -114,11 +122,21 @@ Phases (one line each; any failure exits non-zero):
                      gradient cosine > 0.9999, BatchNorm statistics <
                      1e-5), 28 K1 + 28 K2 a step a rank; each rank's peak
                      memory and times beside the unsharded ones
- 17. colmap       -- tools.colmap.convert(..., vggt=True) on a synthetic
+ 18. colmap       -- tools.colmap.convert(..., vggt=True) on a synthetic
                      49-image sparse model with the DeiT-S retrieval ViT
                      (random weights from seed 0) on the card: descriptors
                      against the CPU's (max abs < 1e-4), cams/ and
                      pair.txt equal to a CPU conversion's; images/s
+ 19. bench        -- the port's bench entry as a user runs it, `python -m
+                     diffmvs_tpu_torch.bench --all` in a subprocess (with
+                     a timeout): the parity gate passes (K1 forward and
+                     K2 gradients within 1e-4 max relative error of the
+                     plain warp), the inference line at B = 16 (bf16,
+                     1152x1600, 5 views, 48/384) with 28 K1 launches a
+                     forward, the training line (bf16 + remat, B = 4,
+                     512x640) with 52 K1 + 28 K2 a step, the loader line;
+                     every value finite and positive, every vs_baseline
+                     null; the lines logged as they came
 Then a JSON line of per-kernel numbers (K1's launches from main and
 main_bf16, K2's from train and train_bf16, at the shards' shapes both
 from sp's rank 0, K3's, the operand and the projection kernel's from the
@@ -279,6 +297,42 @@ def phase_kernel(run):
             rows[(d, h, w, c)] = (f"{name}:sp2", dict(
                 max_abs_err=err, ms=t["ms"], card_ms=t["card_ms"],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+
+    # the bench entry's batch: N = 16 samples at the sweep / stage-2 /
+    # stage-3 shapes, each with its own (ref, source) view pair, features
+    # and (refinement) depths, so an error in a sample's offsets or
+    # projection shows
+    n = 16
+    order = [(r, q) for r in range(views) for q in range(views) if r != q]
+    errs = []
+    for name in ("sweep", "stage2", "stage3"):
+        stage, d, c, s = shapes[name]
+        h, w = hh // s, ww // s
+        pairs = torch.from_numpy(projs[stage][0]).to(dev)      # [V, 2, 4, 4]
+        rp = pairs[[r for r, _ in order[:n]]]
+        sp = pairs[[q for _, q in order[:n]]]
+        depth = make_depth(name, n, d, h, w, dev, gen)
+        src32 = torch.randn(n, h, w, c, device=dev, generator=gen)
+        ref32 = torch.randn(n, h, w, c, device=dev, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"{name}:{'f32' if dt == torch.float32 else 'bf16'}"
+            src, ref = src32.to(dt), ref32.to(dt)
+            with torch.inference_mode():
+                got = warp_corr.warp_corr(src, ref, sp, rp, depth, 4)
+                worst = 0.0
+                for j in range(0, n, 4):       # the plain version by quarters
+                    want = warp_and_correlate_plain(
+                        src[j:j + 4].float(), ref[j:j + 4].float(),
+                        sp[j:j + 4], rp[j:j + 4], depth[j:j + 4], 4)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(
+                        got[j:j + 4], want, **CORR_TOL,
+                        msg=lambda m: f"N=16 {tag} samples {j}+: {m}")
+                    worst = max(worst,
+                                (got[j:j + 4] - want).abs().max().item())
+            errs.append(f"{tag}={worst:.1e}")
+        del src32, ref32, src, ref, got, want, depth
+    log("kernel", shape="batch16", N=n, max_abs_err=",".join(errs))
 
     # batched samples with their own projections, odd sizes (ragged
     # tiles), degenerate depths in the first row, through every load width
@@ -557,7 +611,6 @@ def serve(run, phase, compute_dtype, gate):
     warp: mean relative depth difference below `gate`. Returns maps/s and
     the peak memory (GiB)."""
     from diffmvs_tpu_torch.api import DepthRunner
-    from diffmvs_tpu_torch.models import stages
     from diffmvs_tpu_torch.ops import warp_corr
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
@@ -599,13 +652,14 @@ def serve(run, phase, compute_dtype, gate):
     check(launches == 28 * len(requests), f"{launches} kernel launches")
     check(sorted(by_shape.values()) == [12, 36, 36], f"by shape {by_shape}")
 
-    # the first request once more, the plain warp in place of the kernel
-    dispatch = stages.warp_and_correlate
-    stages.warp_and_correlate = warp_and_correlate_plain
-    try:
-        depth_plain, _ = runner(*requests[0])
-    finally:
-        stages.warp_and_correlate = dispatch
+    # the first request once more, through a twin of the runner (the same
+    # weights) whose model warps with the plain version
+    plain = DepthRunner(runner.cfg, runner.model.state_dict(),
+                        device="cuda", seed=runner.seed,
+                        warp=warp_and_correlate_plain)
+    depth_plain, _ = plain(*requests[0])
+    check(warp_corr.launches == launches, "no K1 launch on the plain path")
+    del plain
     rel = ((results[0][0] - depth_plain).abs()
            / depth_plain.abs().clamp_min(1e-12))
     steady = statistics.mean(req_ms[1:])
@@ -640,6 +694,62 @@ def phase_main_bf16(run):
         maps_per_s_f32=f"{f32['maps_per_s']:.3f}",
         peak_mem_gib_bf16=f"{fig['peak_gib']:.3f}",
         peak_mem_gib_f32=f"{f32['peak_gib']:.3f}")
+
+
+def phase_main_b16(run):
+    """One forward of the bench entry's main cell (bench.infer_config:
+    CasDiffMVS bf16, B = 16, 1152x1600, 5 views, 48/384, random weights
+    from seed 0) whose warp runs K1 and holds each of its 28 results
+    against the plain warp on the same inputs, by quarters of the batch
+    (CORR_TOL). Sample i scales its sources' baselines by 1 + i / 16, so
+    each sample has its own projections."""
+    import numpy as np
+
+    from diffmvs_tpu_torch.api import DepthRunner
+    from diffmvs_tpu_torch.bench import infer_config
+    from diffmvs_tpu_torch.ops.correlation import (warp_and_correlate,
+                                                   warp_and_correlate_plain)
+    from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
+
+    dev = run["dev"]
+    cfg, shape = infer_config("cuda")
+    n = shape.batch
+    worst, calls = {}, []
+
+    def checked(src, ref, sp, rp, depth, groups, x_off=0):
+        got = warp_and_correlate(src, ref, sp, rp, depth, groups, x_off)
+        key = (f"{tuple(depth.shape[1:])}:C{src.shape[-1]}:"
+               f"{str(src.dtype)[6:]}")
+        calls.append((src.shape[0], key))
+        for j in range(0, src.shape[0], 4):
+            want = warp_and_correlate_plain(
+                src[j:j + 4], ref[j:j + 4], sp[j:j + 4], rp[j:j + 4],
+                depth[j:j + 4], groups, x_off)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got[j:j + 4], want, **CORR_TOL,
+                                       msg=lambda m: f"{key} {j}+: {m}")
+            worst[key] = max(worst.get(key, 0.0),
+                             (got[j:j + 4] - want).abs().max().item())
+        return got
+
+    imgs, projs, dv = synthetic_inputs(n, 5, shape.h, shape.w, cfg.numdepth)
+    for p in projs.values():
+        p[:, 1:, 0, :3, 3] *= (1.0 + np.arange(n) / n).reshape(n, 1, 1)
+    runner = DepthRunner(cfg, device=dev, seed=0, warp=checked)
+    t0 = time.time()
+    depth, confs = runner(imgs, projs, dv)
+    torch.cuda.synchronize()
+    check(len(calls) == 28 and all(b == n for b, _ in calls),
+          f"{len(calls)} warps, batches {sorted({b for b, _ in calls})}")
+    check(depth.shape == (n, shape.h, shape.w)
+          and bool(torch.isfinite(depth).all()), f"depth {depth.shape}")
+    log("main_b16", batch=n, warps=len(calls),
+        by_shape=repr({k: sum(1 for _, c in calls if c == k)
+                       for k in worst}),
+        max_abs_err=repr({k: f"{v:.1e}" for k, v in worst.items()}),
+        seconds=f"{time.time() - t0:.1f}")
+    del runner, depth, confs
+    torch.cuda.empty_cache()
 
 
 def phase_train_small(run):
@@ -690,7 +800,7 @@ def train_cell(run, phase, model_cfg, gates):
     mean depth rel, gradient cosine). Returns (K2 launches by shape,
     {samples_per_s, peak_gib}, the state, cfg, batch, overrides)."""
     from diffmvs_tpu_torch.config import TrainConfig
-    from diffmvs_tpu_torch.models import stages
+    from diffmvs_tpu_torch.models.casdiffmvs import CasDiffMVS
     from diffmvs_tpu_torch.ops import warp_corr
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
     from diffmvs_tpu_torch.train.loop import run_training
@@ -769,23 +879,23 @@ def train_cell(run, phase, model_cfg, gates):
     batch = batch_to_device(batches[0], state.device)
     overrides = synthetic_train_overrides(model_cfg, b, hh, ww, seed=7)
 
-    def loss_and_grads():
+    def loss_and_grads(model=state.model):
         before = (warp_corr.launches, warp_corr.bwd_launches)
-        loss, _, outputs, _ = compute_gradients(state.model, cfg, batch,
+        loss, _, outputs, _ = compute_gradients(model, cfg, batch,
                                                 train_overrides=overrides)
         torch.cuda.synchronize()
         counts = (warp_corr.launches - before[0],
                   warp_corr.bwd_launches - before[1])
-        return (loss.item(), flat_grads(state.model),
+        return (loss.item(), flat_grads(model),
                 outputs["depth"][-1].detach(), counts)
 
     loss_k, g_k, depth_k, counts_k = loss_and_grads()
-    dispatch = stages.warp_and_correlate
-    stages.warp_and_correlate = warp_and_correlate_plain
-    try:
-        loss_p, g_p, depth_p, counts_p = loss_and_grads()
-    finally:
-        stages.warp_and_correlate = dispatch
+    # a twin of the model (the same weights and statistics) whose stages
+    # warp with the plain version
+    plain = CasDiffMVS(model_cfg, warp=warp_and_correlate_plain)
+    plain.load_state_dict(state.model.state_dict())
+    loss_p, g_p, depth_p, counts_p = loss_and_grads(plain.to(state.device))
+    del plain
     check(counts_k == (k1_step, k2_step) and counts_p == (0, 0),
           f"launches with the kernels {counts_k}, with the plain warp "
           f"{counts_p}")
@@ -2131,6 +2241,56 @@ def phase_colmap(run):
           "cams/ CUDA vs CPU")
 
 
+BENCH_TIMEOUT_S = 600
+
+
+def phase_bench(run):
+    """`python -m diffmvs_tpu_torch.bench --all` in a subprocess: its four
+    JSON lines (parity, inference, training, loader), each logged, then
+    held to the gates and launch counts."""
+    torch.cuda.empty_cache()     # the bench process takes B = 16's memory
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "diffmvs_tpu_torch.bench", "--all"],
+        cwd=str(REPO), capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    for line in proc.stderr.strip().splitlines()[-20:]:
+        log("bench", stderr=repr(line))
+    lines = [json.loads(l) for l in proc.stdout.splitlines()
+             if l.startswith("{")]
+    for line in lines:
+        log("bench", line=json.dumps(line))
+    check(proc.returncode == 0, f"bench --all exited {proc.returncode}")
+    check([l["metric"] for l in lines] == [
+        "cuda_vs_plain_parity_max_rel_err",
+        "casdiffmvs_dtu1600x1152_n5_inference_throughput",
+        "casdiffmvs_train_dtu640x512_n5_throughput",
+        "host_input_pipeline_dtu_workers4"], "the four lines of --all")
+    parity, infer, train, io = lines
+    check(parity["pass"] is True and parity["value"] <= 1e-4
+          and parity["bwd_value"] <= 1e-4,
+          f"parity fwd {parity['value']} bwd {parity['bwd_value']}")
+    check(infer["batch"] == 16 and infer["reps"] == 6
+          and infer["k1_launches_per_forward"] == 28,
+          f"inference B {infer['batch']}, "
+          f"{infer['k1_launches_per_forward']} K1 a forward")
+    check(train["k1_launches_per_step"] == 52
+          and train["k2_launches_per_step"] == 28,
+          f"{train['k1_launches_per_step']} K1 + "
+          f"{train['k2_launches_per_step']} K2 a training step")
+    for line in (infer, train, io):
+        check(line["vs_baseline"] is None, f"{line['metric']} vs_baseline")
+        figures = [line["value"]] + [line[k] for k in (
+            "card_s_per_forward", "card_s_per_step", "host_s_per_forward",
+            "host_s_per_step", "sec_per_step", "peak_gib") if k in line]
+        check(all(math.isfinite(v) and v > 0 for v in figures),
+              f"{line['metric']}: {figures}")
+    log("bench", seconds=f"{time.time() - t0:.1f}",
+        maps_per_s=f"{infer['value']:.3f}", spread=infer["spread"],
+        samples_per_s=f"{train['value']:.3f}",
+        view_sets_per_s=f"{io['value']:.3f}")
+
+
 def main():
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2166,10 +2326,10 @@ def main():
            "k2_rows_sp": {}, "k2_rows_sp_bf16": {}, "k3_rows": [],
            "operand_rows": []}
     for phase in (phase_kernel, phase_train_kernel, phase_small, phase_main,
-                  phase_main_bf16, phase_train_small, phase_train,
-                  phase_train_bf16, phase_k3_kernel, phase_export,
+                  phase_main_bf16, phase_main_b16, phase_train_small,
+                  phase_train, phase_train_bf16, phase_k3_kernel, phase_export,
                   phase_train_cli, phase_train_cli_blend, phase_ddp,
-                  phase_sp, phase_colmap):
+                  phase_sp, phase_colmap, phase_bench):
         phase(run)
 
     kernels = []

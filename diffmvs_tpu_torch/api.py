@@ -78,15 +78,16 @@ class DepthRunner:
     """Export-mode inference on one device, under torch.inference_mode().
 
     The DDIM noise comes from a torch.Generator on the runner's device,
-    seeded from `seed` on every call unless the caller passes one."""
+    seeded from `seed` on every call unless the caller passes one. warp:
+    the model's warp + correlation (CasDiffMVS's argument)."""
 
     def __init__(self, cfg: ModelConfig, state_dict: Optional[Dict] = None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, warp=None):
         self.device = resolve_device(device)
         set_f32_precision()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = CasDiffMVS(cfg)
+            model = CasDiffMVS(cfg, warp=warp)
         if state_dict is not None:
             model.load_state_dict(clean_reference_state_dict(state_dict),
                                   strict=True)

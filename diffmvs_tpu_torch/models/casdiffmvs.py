@@ -83,7 +83,11 @@ def views_nhwc(x, b, v):
 class CasDiffMVS(nn.Module):
     space = None        # a spatial.SpaceGroup once width-sharded
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, warp=None):
+        """warp: the plane-sweep warp + group correlation every stage
+        runs; None for ops/correlation.warp_and_correlate (the kernels on
+        CUDA tensors), or e.g. warp_and_correlate_plain (plain PyTorch on
+        every device, autograd its backward)."""
         super().__init__()
         cfg.validate()
         self.cfg = cfg
@@ -92,7 +96,7 @@ class CasDiffMVS(nn.Module):
         self.context = ContextNet(cfg.ctx_out_dim, dt)
         self.depthnet = InitialStage(cfg.ctx_out_dim[0],
                                      cfg.cost_dim_stage[0], up_ratio=2,
-                                     dtype=dt)
+                                     dtype=dt, warp=warp)
         hidden_inits = []
         for s in (1, 2):
             if cfg.stage_iters[s] == 0:
@@ -118,7 +122,8 @@ class CasDiffMVS(nn.Module):
                 min_radius=cfg.min_radius,
                 max_radius=cfg.max_radius,
                 remat=cfg.remat,
-                dtype=dt))
+                dtype=dt,
+                warp=warp))
         self.hidden_init = nn.ModuleList(hidden_inits)
 
     def draw_train_overrides(self, b: int, h: int, w: int,

@@ -70,8 +70,9 @@ class RefineIteration(nn.Module):
     def __init__(self, unet_dim: int, dim_mults: Tuple[int, ...],
                  hidden_dim: int, context_dim: int, cost_num: int,
                  group_dim: int, depth_interval: float, min_radius: float,
-                 max_radius: float, dtype=torch.float32):
+                 max_radius: float, dtype=torch.float32, warp=None):
         super().__init__()
+        self.warp = warp
         self.cost_num = cost_num
         self.group_dim = group_dim
         self.depth_interval = depth_interval
@@ -97,7 +98,7 @@ class RefineIteration(nn.Module):
             depth_max, self.cost_num, self.group_dim, view_weights,
             confidence=confidence, min_radius=self.min_radius,
             max_radius=self.max_radius, use_confidence=has_conf,
-            x_off=x_off)
+            x_off=x_off, warp=self.warp)
         input_features = self.encoder(inv_new[:, None], samples, cost)
         input_unet = torch.cat([context, input_features], dim=1)
         hidden, update, confidence = self.unet(input_unet, hidden, t)
@@ -116,10 +117,10 @@ class RefinementStage(RefineIteration):
                  group_dim: int, depth_interval: float, iters: int,
                  up_ratio: int, schedule: DiffusionSchedule,
                  min_radius: float = 0.2, max_radius: float = 2.0,
-                 remat: bool = False, dtype=torch.float32):
+                 remat: bool = False, dtype=torch.float32, warp=None):
         super().__init__(unet_dim, dim_mults, hidden_dim, context_dim,
                          num_sample, group_dim, depth_interval, min_radius,
-                         max_radius, dtype)
+                         max_radius, dtype, warp)
         self.iters = iters
         self.schedule = schedule
         self.remat = remat

@@ -55,9 +55,10 @@ class InitialStage(nn.Module):
     """
 
     def __init__(self, context_dim: int, group_dim: int, up_ratio: int = 2,
-                 dtype=torch.float32):
+                 dtype=torch.float32, warp=None):
         super().__init__()
         self.group_dim = group_dim
+        self.warp = warp
         self.pixel_view_weight = PixelViewWeight(group_dim)
         self.cost_regularization = CostRegNet(group_dim, base_channels=8,
                                               dtype=dtype)
@@ -80,7 +81,7 @@ class InitialStage(nn.Module):
         ref_fea = features[0]
         cor_list, weight_list = [], []
         for i, src_fea in enumerate(features[1:]):
-            cor = warp_and_correlate(
+            cor = (self.warp or warp_and_correlate)(
                 src_fea, ref_fea, proj_pairs[:, i + 1], proj_pairs[:, 0],
                 depth_values, self.group_dim, x_off
             ).to(ref_fea.dtype)                            # [B,D,H,W,G]
@@ -101,7 +102,7 @@ def local_cost_volume(inv_depth, features, proj_pairs, depth_interval,
                       depth_min, depth_max, cost_num, group_dim,
                       view_weights, confidence=None, min_radius=0.2,
                       max_radius=2.0, use_confidence: bool = True,
-                      x_off: int = 0):
+                      x_off: int = 0, warp=None):
     """Per-iteration local cost volume around the current inverse depth.
 
     Sample cost_num hypotheses (confidence-adaptive radius), warp every
@@ -112,6 +113,8 @@ def local_cost_volume(inv_depth, features, proj_pairs, depth_interval,
     features: list of V NHWC feature maps [B, H, W, C] (ref first).
     view_weights: [V-1, B, H, W] (already upsampled to this stage's res).
     x_off: ref's column offset on a width shard (0: the whole map).
+    warp: the warp + correlation; None for ops/correlation.
+      warp_and_correlate (the kernels on CUDA tensors).
     Returns (cost [B, G*cost_num, H, W], samples [B, cost_num, H, W]).
     """
     if cost_num > 1:
@@ -127,9 +130,9 @@ def local_cost_volume(inv_depth, features, proj_pairs, depth_interval,
 
     ref_fea = features[0]
     cor_list = [
-        warp_and_correlate(src_fea, ref_fea, proj_pairs[:, i + 1],
-                           proj_pairs[:, 0], depth_hyp, group_dim,
-                           x_off).to(ref_fea.dtype)
+        (warp or warp_and_correlate)(
+            src_fea, ref_fea, proj_pairs[:, i + 1], proj_pairs[:, 0],
+            depth_hyp, group_dim, x_off).to(ref_fea.dtype)
         for i, src_fea in enumerate(features[1:])]
     agg = aggregate_views(torch.stack(cor_list), view_weights)  # [B,D,H,W,G]
     _, d, h, w, g = agg.shape

@@ -288,6 +288,13 @@ def _check_forward(src_fea, ref_fea, rt, depth_values, groups, x_off=0):
     if groups <= 0 or c % groups != 0 or hs == 0 or ws == 0:
         raise ValueError(f"warp_corr: C={c} not divisible by G={groups} "
                          f"or empty source")
+    # K1 and K2 put the sample in a grid dimension of at most 65535 and
+    # index a pixel of one map with 32 bits (offsets across samples,
+    # planes and channels are 64-bit)
+    if n > 65535 or max(h * w, hs * ws) >= 2 ** 31:
+        raise ValueError(f"warp_corr: a batch of {n} maps of {h}x{w} "
+                         f"(source {hs}x{ws}) exceeds the kernels' limits "
+                         f"(65535 samples, 2^31 pixels a map)")
     if not 0 <= x_off < 2 ** 24 - w:
         raise ValueError(f"warp_corr: column offset {x_off} out of range")
 

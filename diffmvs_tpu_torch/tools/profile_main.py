@@ -2,11 +2,13 @@
 training step, under torch.profiler.
 
     python3 -m diffmvs_tpu_torch.tools.profile_main [--requests 2] [--train]
-        [--dtype bf16]
+        [--dtype bf16] [--batch 16]
 
 Default: DepthRunner.from_random("casdiffmvs", device="cuda", seed=0) at
 DTU size (1152x1600, 5 views, 48/384 hypotheses) answers one warm-up
-request, then --requests more are profiled. --train: the training cell
+request, then --requests more are profiled; --batch view-sets a
+request (default 1). The inputs are uploaded to the card once, before
+the warm-up, as the bench entry holds them. --train: the training cell
 instead (CasDiffMVS, B=4, 5 views, 512x640, 48/384 hypotheses, random
 init from seed 0, a synthetic batch): one warm-up train_step, then
 --requests steps. --dtype: the conv stacks' compute dtype, f32 (default)
@@ -29,6 +31,9 @@ import torch
 # kernel-name fragments -> group, first match wins
 GROUPS = (
     ("warp_corr_bwd", "warp_corr backward (K2, hand-written)"),
+    # K1 and K3 are instances of warp_geom::corr_kernel
+    ("sweepsamples", "warp_corr (K1, hand-written)"),
+    ("cornersamples", "warp_corr_pre (K3, hand-written)"),
     ("warp_corr", "warp_corr (K1, hand-written)"),
     ("multi_tensor", "optimizer"),
     ("bn_bw", "normalization"),
@@ -57,8 +62,9 @@ def group_of(name: str) -> str:
 DTYPES = {"f32": "float32", "bf16": "bfloat16"}
 
 
-def request_work(dtype):
-    """One export request at DTU size."""
+def request_work(dtype, batch=1):
+    """One export request at DTU size, `batch` view-sets (the inputs on
+    the card already)."""
     from diffmvs_tpu_torch.api import DepthRunner
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
@@ -66,7 +72,10 @@ def request_work(dtype):
     runner = DepthRunner.from_random("casdiffmvs", image_hw=(hh, ww),
                                      views=views, device="cuda", seed=0,
                                      compute_dtype=DTYPES[dtype])
-    inputs = synthetic_inputs(1, views, hh, ww, 384, seed=0)
+    imgs, projs, dv = synthetic_inputs(batch, views, hh, ww, 384, seed=0)
+    inputs = (torch.from_numpy(imgs).cuda(),
+              {k: torch.from_numpy(v).cuda() for k, v in projs.items()},
+              torch.from_numpy(dv).cuda())
     return lambda: runner(*inputs)
 
 
@@ -99,6 +108,8 @@ def main(argv=None):
                     help="profile train steps of the training cell")
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="f32",
                     help="compute dtype of the conv stacks")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="view-sets a request (inference only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: CUDA is not available")
@@ -106,7 +117,8 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    work = (train_work if args.train else request_work)(args.dtype)
+    work = (train_work(args.dtype) if args.train
+            else request_work(args.dtype, args.batch))
     work()                                               # warm-up
     torch.cuda.synchronize()
 
@@ -141,6 +153,7 @@ def main(argv=None):
     print(f"card: {smi}")
     print(json.dumps({
         "dtype": args.dtype,
+        "batch": 4 if args.train else args.batch,
         f"{unit}_ms": [round(w, 3) for w in wall],
         f"device_busy_ms_per_{unit}": round(busy_ms, 3),
         "device_idle_share": round(max(0.0, 1.0 - busy_ms / req_ms), 4),

@@ -50,17 +50,18 @@ def make_optimizer(params, lr: float, weight_decay: float):
 
 
 def create_train_state(cfg, steps_per_epoch: int = 1000, device=None,
-                       seed: int = 0,
-                       state_dict: Optional[Dict] = None) -> TrainState:
+                       seed: int = 0, state_dict: Optional[Dict] = None,
+                       warp=None) -> TrainState:
     """Model (torch default init from `seed`, or `state_dict`), optimizer
     and schedule on `device`: CUDA unless device="cpu" is asked for;
     without a card that raises. cfg: TrainConfig. The parameters and the
-    optimizer state are float32 for either compute dtype."""
+    optimizer state are float32 for either compute dtype. warp: the
+    model's warp + correlation (CasDiffMVS's argument)."""
     dev = resolve_device(device)
     set_f32_precision()
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = CasDiffMVS(cfg.model)
+        model = CasDiffMVS(cfg.model, warp=warp)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     model = model.to(dev).train()

@@ -119,7 +119,8 @@ def test_import_loads_no_jax():
         "diffmvs_tpu_torch.data.scene_lists, diffmvs_tpu_torch.cli.train, "
         "diffmvs_tpu_torch.parallel.distributed, "
         "diffmvs_tpu_torch.utils.profiling, "
-        "diffmvs_tpu_torch.tools.retrieval, diffmvs_tpu_torch.tools.colmap\n"
+        "diffmvs_tpu_torch.tools.retrieval, diffmvs_tpu_torch.tools.colmap, "
+        "diffmvs_tpu_torch.bench, diffmvs_tpu_torch.tools.chain_spread\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'diffmvs_tpu')]\n"
         "assert not bad, bad\n")
