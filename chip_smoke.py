@@ -9,7 +9,14 @@ Phases (one line each; any failure exits non-zero):
                      side: K1 (ops/csrc/warp_corr.cu), K2 (warp_corr_bwd.cu),
                      K3 with its operand and projection kernels
                      (warp_corr_pre.cu)
-  3. kernel       -- K1 against its plain PyTorch version at the inference
+  3. jax_ckpt     -- the JAX package's orbax checkpoints with no JAX on the
+                     machine: tests/data/orbax_state/ (a toy train state
+                     saved by its save_checkpoint, and arrays orbax split
+                     into several zarr chunks) through train/orbax_read.py
+                     and the system's libzstd.so.1, every leaf bit-equal to
+                     expected.npz; the optax state into torch's AdamW on
+                     the card; the read's host ms
+  4. kernel       -- K1 against its plain PyTorch version at the inference
                      path's shapes (and DiffMVS's refinement shape), f32
                      and bf16 features, with CUDA-event times (ms: L2 warm,
                      the host's launch gap included; card_ms: without it;
@@ -22,7 +29,7 @@ Phases (one line each; any failure exits non-zero):
                      entry's batch, N = 16 at the sweep / stage-2 /
                      stage-3 shapes, each sample with its own view pair,
                      features and depths, f32 and bf16
-  4. train_kernel -- K2 against autograd of the plain version at the
+  5. train_kernel -- K2 against autograd of the plain version at the
                      training shapes (B=4 at 512x640: the sweep and the two
                      refinement stages) with degenerate depths, f32 and
                      bf16 features, plus batched odd sizes through the
@@ -32,37 +39,37 @@ Phases (one line each; any failure exits non-zero):
                      kernel, bound, global atomic counts; the width
                      shards' training shapes (x_off = W/2, d_src full
                      width), f32 and bf16
-  5. small        -- the port on CUDA against the port on the CPU (the path
+  6. small        -- the port on CUDA against the port on the CPU (the path
                      the CPU tests hold against JAX), same weights, 64x96,
                      f32 and bf16 compute
-  6. main         -- CasDiffMVS export inference at DTU size (1152x1600, 5
+  7. main         -- CasDiffMVS export inference at DTU size (1152x1600, 5
                      views, 48/384 hypotheses, f32, random weights from
                      seed 0): 3 requests through DepthRunner; 28 K1
                      launches each; the first request again with the plain
                      warp in place of the kernel must agree
-  7. main_bf16    -- the same in bf16 compute, beside main's maps/s and
+  8. main_bf16    -- the same in bf16 compute, beside main's maps/s and
                      peak memory
-  8. main_b16     -- one forward of the bench entry's main cell (bf16, B =
+  9. main_b16     -- one forward of the bench entry's main cell (bf16, B =
                      16, 1152x1600, 5 views, 48/384), each sample with its
                      own baselines, whose warp runs K1 and holds each of
                      its 28 results against the plain warp on the same
                      inputs
-  9. train_small  -- one train step of the port on CUDA against the same
+ 10. train_small  -- one train step of the port on CUDA against the same
                      step on the CPU at 64x96 (same weights, batch,
                      timesteps and noise), f32, and bf16 with remat:
                      loss and gradient direction
- 10. train        -- the training cell: CasDiffMVS f32, B=4, 5 views,
+ 11. train        -- the training cell: CasDiffMVS f32, B=4, 5 views,
                      512x640, 48/384 hypotheses, random init from seed 0,
                      run_training over 5 steps (the first a warm-up): 28
                      K1 + 28 K2 launches and a finite loss and gradient
                      norm every step; one step's gradients against the
                      same step with the plain warp in place of the kernels
- 11. train_bf16   -- the same in bf16 compute with remat (the configuration
+ 12. train_bf16   -- the same in bf16 compute with remat (the configuration
                      bench.py trains in): 52 K1 (the backward recomputes
                      each refinement iteration) + 28 K2 launches a step;
                      also one step's gradients with remat off; samples/s
                      and peak memory beside train's
- 12. k3_kernel    -- K3 and its operand and projection kernels, warp_corr(
+ 13. k3_kernel    -- K3 and its operand and projection kernels, warp_corr(
                      ..., batch_rows=False), their only path: the projection
                      kernel bit for bit against projection_scalars; K3
                      against its plain version and against K1 on the same
@@ -77,7 +84,7 @@ Phases (one line each; any failure exits non-zero):
                      in f32 and bf16, G = 1, 8, 257 and 520, misaligned
                      bases); the gradients through K3 against those through
                      K1 (both K2) at the training stage-3 shape
- 13. export       -- the scene export entry point as a user runs it:
+ 14. export       -- the scene export entry point as a user runs it:
                      cli.test.main on a synthetic DTU-layout scan of 7 views
                      at 1152x1600 (uint8 .npy serving caches), CasDiffMVS
                      f32 48/384, 5 views per depth map, random weights from
@@ -88,7 +95,7 @@ Phases (one line each; any failure exits non-zero):
                      accuracy/completeness against a plane on card and CPU;
                      views/s and its split into load, inference, write and
                      fusion on the host's and the card's clock
- 14. train_cli    -- the training entry point through the data layer:
+ 15. train_cli    -- the training entry point through the data layer:
                      cli.train.main on a synthetic DTU training scan (5
                      views x 7 lights, 512x640 PNGs, 1200x1600 depth and
                      visibility), CasDiffMVS f32, B=4, 48/384, 2 loader
@@ -99,16 +106,16 @@ Phases (one line each; any failure exits non-zero):
                      checkpoints; samples/s beside train's, the host gaps
                      between steps one by one with the loop's image saving
                      in each, peak memory
- 15. train_cli_blend -- cli.train on a synthetic BlendedMVS scan at 576x768,
+ 16. train_cli_blend -- cli.train on a synthetic BlendedMVS scan at 576x768,
                      B=2, 2 steps from train_cli's checkpoint through
                      --loadckpt's strict .ckpt path; its step times and
                      the gap between them
- 16. ddp          -- the data-parallel step (SyncBatchNorm, DDP, the global
+ 17. ddp          -- the data-parallel step (SyncBatchNorm, DDP, the global
                      batch's noise) in an NCCL group of one on 127.0.0.1
                      against the plain step, two steps of the training cell:
                      loss rel < 1e-5, gradient cosine > 0.9999, BatchNorm
                      running statistics within 1e-5 after each step
- 17. sp           -- width sharding, sp = 2: two ranks on the one card in a
+ 18. sp           -- width sharding, sp = 2: two ranks on the one card in a
                      gloo group (NCCL takes one rank per card), spawned
                      with a timeout and killed on it; gloo's all_gather
                      and all_reduce on CUDA tensors checked first. The
@@ -122,12 +129,25 @@ Phases (one line each; any failure exits non-zero):
                      gradient cosine > 0.9999, BatchNorm statistics <
                      1e-5), 28 K1 + 28 K2 a step a rank; each rank's peak
                      memory and times beside the unsharded ones
- 18. colmap       -- tools.colmap.convert(..., vggt=True) on a synthetic
+ 19. dp_shard     -- the data-parallel step in mode "shard" (the JAX
+                     package's shard_map step: per-rank BatchNorm
+                     statistics averaged after the step, per-rank noise
+                     from a generator folded with the rank, per-rank mask
+                     counts) in two gloo ranks on the one card: one
+                     training-cell step, B = 2 a rank, 28 K1 + 28 K2 a
+                     rank, against the plain per-shard computation (each
+                     shard's rows in one process with that rank's
+                     generator and the plain warp, gradients and
+                     statistics averaged, one AdamW step): loss rel <
+                     1e-5, gradient cosine > 0.9999, parameters < 1e-4 and
+                     statistics < 1e-5 (relative to 1 + |value|); each
+                     rank's ms and peak memory
+ 20. colmap       -- tools.colmap.convert(..., vggt=True) on a synthetic
                      49-image sparse model with the DeiT-S retrieval ViT
                      (random weights from seed 0) on the card: descriptors
                      against the CPU's (max abs < 1e-4), cams/ and
                      pair.txt equal to a CPU conversion's; images/s
- 19. bench        -- the port's bench entry as a user runs it, `python -m
+ 21. bench        -- the port's bench entry as a user runs it, `python -m
                      diffmvs_tpu_torch.bench --all` in a subprocess (with
                      a timeout): the parity gate passes (K1 forward and
                      K2 gradients within 1e-4 max relative error of the
@@ -2040,12 +2060,49 @@ def sp_rank(rank, port, outdir):
                "f32": sp_serve(space, "float32", 1e-4, lead),
                "bf16": sp_serve(space, "bfloat16", 5e-2, lead),
                "train": sp_train(space, lead),
-               "modules": sorted(m for m in sys.modules if m.split(".")[0]
-                                 in ("jax", "jaxlib", "flax",
-                                     "diffmvs_tpu"))}
+               "modules": jax_modules()}
         (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
+
+
+def spawn_card_ranks(target, name, timeout_s):
+    """target(rank, port, outdir) in two spawned processes on the one card
+    (a gloo group: NCCL takes one rank per card), joined with a timeout
+    and killed on it. Returns each rank's rank{r}.json from outdir
+    (build/chip_smoke_<name>), after checking that no rank imported
+    JAX."""
+    import multiprocessing as mp
+
+    outdir = REPO / "build" / f"chip_smoke_{name}"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=target, args=(r, port, str(outdir)))
+             for r in range(2)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=max(1.0, timeout_s - (time.time() - t0)))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    check(not hung, f"a {name} rank did not finish in {timeout_s} s")
+    check([p.exitcode for p in procs] == [0, 0],
+          f"{name} ranks exited {[p.exitcode for p in procs]}")
+    ranks = [json.loads((outdir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    check(all(r["modules"] == [] for r in ranks),
+          f"{name} ranks imported JAX")
+    return ranks
+
+
+def jax_modules():
+    return sorted(m for m in sys.modules if m.split(".")[0]
+                  in ("jax", "jaxlib", "flax", "diffmvs_tpu"))
 
 
 def phase_sp(run):
@@ -2054,30 +2111,7 @@ def phase_sp(run):
     main-path configuration in f32 and bf16 against the unsharded one, and
     two training-cell steps (dp = 1 x sp = 2) against the plain step, with
     each rank's peak memory and times beside the unsharded figures."""
-    import multiprocessing as mp
-
-    outdir = REPO / "build" / "chip_smoke_sp"
-    shutil.rmtree(outdir, ignore_errors=True)
-    outdir.mkdir(parents=True)
-    ctx = mp.get_context("spawn")
-    port = free_port()
-    procs = [ctx.Process(target=sp_rank, args=(r, port, str(outdir)))
-             for r in range(2)]
-    t0 = time.time()
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=max(1.0, SP_TIMEOUT_S - (time.time() - t0)))
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
-    check(not hung, f"an sp rank did not finish in {SP_TIMEOUT_S} s")
-    check([p.exitcode for p in procs] == [0, 0],
-          f"sp ranks exited {[p.exitcode for p in procs]}")
-    ranks = [json.loads((outdir / f"rank{r}.json").read_text())
-             for r in range(2)]
-    check(all(r["modules"] == [] for r in ranks), "sp ranks imported JAX")
+    ranks = spawn_card_ranks(sp_rank, "sp", SP_TIMEOUT_S)
     lead = ranks[0]
     for tag in ("f32", "bf16"):
         f = lead[tag]
@@ -2116,6 +2150,290 @@ def phase_sp(run):
                     for tag in ("f32", "bf16")}
     run["sp_k2"] = {tuple(int(x) for x in k.strip("()").split(",")): v
                     for k, v in t["k2_by_shape"].items()}
+
+
+DP_SHARD_TIMEOUT_S = 420
+# the first AdamW update moves each parameter by at most the schedule's
+# first rate (onecycle: 1e-3 / 25) times (1 + weight decay x |p|); a
+# gradient near zero whose sign the kernels' float32 sums flip moves its
+# parameter by twice that, 8e-5, which bounds the parameters' error
+DP_SHARD_GATES = dict(loss_rel=1e-5, grad_cosine=0.9999, params=1e-4,
+                      stats=1e-5)
+
+
+def dp_shard_case():
+    """(TrainConfig, global batch) of the dp_shard phase: the training
+    cell (CasDiffMVS f32, B = 4, 5 views, 512x640, 48/384) with masks
+    that keep a different share of each row, so each rank's mask counts
+    differ."""
+    import numpy as np
+
+    from diffmvs_tpu_torch.config import MODEL_PRESETS, TrainConfig
+    from diffmvs_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    b, views, hh, ww = 4, 5, 512, 640
+    cfg = TrainConfig(model=MODEL_PRESETS["casdiffmvs"], batch_size=b)
+    batch = synthetic_train_batch(b, views, hh, ww, 384, seed=0)
+    rng = np.random.RandomState(1)
+    keep = (0.5 + 0.5 * np.arange(b) / b).reshape(b, 1, 1)
+    for s, m in batch["mask"].items():
+        batch["mask"][s] = (rng.rand(*m.shape) < keep).astype(np.float32)
+    return cfg, batch
+
+
+def flat_stats(model):
+    return torch.cat([v.double().flatten() for k, v in
+                      model.state_dict().items() if "running_" in k])
+
+
+def flat_params(model):
+    return torch.cat([p.detach().double().flatten()
+                      for p in model.parameters()])
+
+
+def dp_shard_rank(rank, port, outdir):
+    """One rank of the dp_shard phase: one "shard"-mode step (per-rank
+    nn.BatchNorm, this rank's generator, its rows' mask counts) of the
+    training cell with K1 and K2; rank 0 then runs the plain per-shard
+    computation and holds the step against it."""
+    import torch.distributed as dist
+
+    from diffmvs_tpu_torch.api import set_f32_precision
+    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
+    from diffmvs_tpu_torch.parallel.distributed import (DataParallel,
+                                                        SyncBatchNorm,
+                                                        fold_seed)
+    from diffmvs_tpu_torch.train.state import create_train_state
+    from diffmvs_tpu_torch.train.step import (_split, batch_to_device,
+                                              compute_gradients, train_step)
+
+    torch.cuda.set_device(0)
+    set_f32_precision()
+    warp_corr._load()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        cfg, batch = dp_shard_case()
+        state = create_train_state(cfg, steps_per_epoch=10, device="cuda",
+                                   seed=0)
+        dp = DataParallel(state.model, mode="shard")
+        check(dp.mode == "shard" and not any(
+            isinstance(m, SyncBatchNorm) for m in state.model.modules()),
+            "shard mode keeps nn.BatchNorm")
+        gen = dp.generator(5, "cuda")
+        check(gen.initial_seed() == fold_seed(5, rank), "the rank's seed")
+        local = _split(batch, 2, rank)
+        # a warm-up step from a throwaway state (cuDNN's first calls, the
+        # allocator), neither timed nor compared
+        warm = create_train_state(cfg, steps_per_epoch=10, device="cuda",
+                                  seed=0)
+        wdp = DataParallel(warm.model, mode="shard")
+        train_step(warm, cfg, local, wdp.generator(5, "cuda"), dp=wdp)
+        del warm, wdp
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        warp_corr.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scalars, _ = train_step(state, cfg, local, gen, dp=dp)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = (warp_corr.launches, warp_corr.bwd_launches)
+        res = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated()
+               / 2**30, "launches": launches, "loss": float(scalars["loss"]),
+               "modules": jax_modules()}
+        params, stats = flat_params(state.model), flat_stats(state.model)
+        grads = flat_grads(state.model)
+        res["params_sum"] = float(params.sum())
+        check(math.isfinite(res["loss"]), f"dp_shard loss {res['loss']}")
+        if rank == 0:
+            # the plain per-shard computation: each shard's rows in one
+            # process with that rank's generator and the plain warp; the
+            # gradients and statistics averaged; one AdamW step
+            del state, dp
+            shard_grads, shard_stats, losses, plain_ms = [], [], [], []
+            for r in range(2):
+                ref = create_train_state(cfg, steps_per_epoch=10,
+                                         device="cuda", seed=0,
+                                         warp=warp_and_correlate_plain)
+                warp_corr.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _, _, _ = compute_gradients(
+                    ref.model, cfg, batch_to_device(_split(batch, 2, r),
+                                                    "cuda"),
+                    torch.Generator(device="cuda").manual_seed(
+                        fold_seed(5, r)))
+                torch.cuda.synchronize()
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+                check(warp_corr.launches == 0 and
+                      warp_corr.bwd_launches == 0, "no kernel on the plain "
+                      "per-shard path")
+                shard_grads.append([p.grad.clone()
+                                    for p in ref.model.parameters()])
+                shard_stats.append({k: v.clone() for k, v in
+                                    ref.model.state_dict().items()
+                                    if "running_" in k})
+                losses.append(float(loss))
+                del ref
+            ref = create_train_state(cfg, steps_per_epoch=10, device="cuda",
+                                     seed=0, warp=warp_and_correlate_plain)
+            with torch.no_grad():
+                for i, p in enumerate(ref.model.parameters()):
+                    p.grad = (shard_grads[0][i] + shard_grads[1][i]) / 2
+                sd = ref.model.state_dict()
+                for k in shard_stats[0]:
+                    sd[k].copy_((shard_stats[0][k] + shard_stats[1][k]) / 2)
+            ref_grads = flat_grads(ref.model)
+            ref.apply_gradients(cfg.grad_clip)
+            want_p, want_s = flat_params(ref.model), flat_stats(ref.model)
+            want_loss = sum(losses) / 2
+            p_err = (params - want_p).abs() / (1.0 + want_p.abs())
+            res.update(
+                params_over_1e6=int((p_err > 1e-6).sum()),
+                params_count=p_err.numel(),
+                plain_ms=plain_ms,
+                loss_rel=abs(res["loss"] - want_loss) / abs(want_loss),
+                grad_cosine=cosine(grads, ref_grads),
+                params_max_rel=p_err.max().item(),
+                stats_max_rel=((stats - want_s).abs()
+                               / (1.0 + want_s.abs())).max().item())
+        (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_shard(run):
+    """The data-parallel step in mode "shard" (the JAX package's
+    shard_map step: per-rank BatchNorm statistics averaged after the step,
+    per-rank noise from a generator folded with the rank, per-rank mask
+    counts) in two gloo ranks on the one card, one training-cell step of
+    B = 2 a rank with K1 and K2 (after a warm-up step from a throwaway
+    state), against the plain per-shard computation
+    (each shard's rows in one process with that rank's generator and the
+    plain warp, gradients and statistics averaged, one AdamW step): the
+    relative errors of the loss, the parameters and the statistics (the
+    latter two relative to 1 + |value|), the gradient cosine; each rank's
+    ms and peak memory (gloo's, not a deployment's)."""
+    ranks = spawn_card_ranks(dp_shard_rank, "dp_shard", DP_SHARD_TIMEOUT_S)
+    lead = ranks[0]
+    for r in ranks:
+        check(tuple(r["launches"]) == (28, 28), f"dp_shard K1 / K2 "
+              f"launches {r['launches']} a rank")
+    check(ranks[0]["params_sum"] == ranks[1]["params_sum"],
+          "the ranks' parameters after the step")
+    g = DP_SHARD_GATES
+    log("dp_shard", dp=2, mode="shard", backend="gloo", B=4, B_rank=2,
+        views=5, hw="512x640", dtype="f32",
+        loss_rel=f"{lead['loss_rel']:.3e}",
+        grad_cosine=f"{lead['grad_cosine']:.9f}",
+        params_max_rel=f"{lead['params_max_rel']:.3e}",
+        params_over_1e6=f"{lead['params_over_1e6']}/{lead['params_count']}",
+        stats_max_rel=f"{lead['stats_max_rel']:.3e}",
+        k1_k2_per_rank=repr([tuple(r["launches"]) for r in ranks]),
+        step_ms_per_rank=repr([round(r["ms"], 1) for r in ranks]),
+        peak_gib_per_rank=repr([round(r["peak_gib"], 3) for r in ranks]),
+        plain_shard_ms=repr([round(m, 1) for m in lead["plain_ms"]]),
+        gates=",".join(f"{k}{'>' if k == 'grad_cosine' else '<'}{v}"
+                       for k, v in g.items()))
+    check(lead["loss_rel"] < g["loss_rel"], f"dp_shard loss rel "
+          f"{lead['loss_rel']}")
+    check(lead["grad_cosine"] > g["grad_cosine"], f"dp_shard gradient "
+          f"cosine {lead['grad_cosine']}")
+    check(lead["params_max_rel"] < g["params"], f"dp_shard parameters "
+          f"{lead['params_max_rel']}")
+    check(lead["stats_max_rel"] < g["stats"], f"dp_shard statistics "
+          f"{lead['stats_max_rel']}")
+
+
+def toy_net():
+    """The torch module whose weights tests/data/orbax_state/model_000001
+    holds (tests/test_torch_orbax.py's ToyNet), and its block map."""
+    net = torch.nn.Module()
+    net.conv = torch.nn.Conv2d(3, 8, 3)
+    net.bn = torch.nn.BatchNorm2d(8)
+    net.head = torch.nn.Conv3d(8, 2, 3)
+    net.dense = torch.nn.Linear(8, 4)
+
+    def emit(e):
+        e.conv2d("conv", "conv")
+        e.bn("bn", "bn")
+        e.conv3d("head", "head")
+        e.linear("dense", "dense")
+    return net, emit
+
+
+def flatten_tree(tree, prefix=""):
+    """{path: leaf} of a checkpoint's tree; None / {} / [] leaves kept (as
+    tests/test_torch_orbax.py's flatten)."""
+    if isinstance(tree, dict) and tree:
+        items = tree.items()
+    elif isinstance(tree, list) and tree:
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def phase_jax_ckpt(run):
+    """The JAX package's orbax checkpoints on this machine, which has
+    neither JAX nor tensorstore: tests/data/orbax_state/ (a toy train
+    state saved by the JAX package's save_checkpoint, and arrays orbax
+    split into several zarr chunks) through train/orbax_read.py and the
+    system's libzstd.so.1, every leaf bit-equal to its expected.npz; the
+    toy state's optax state into torch's AdamW on the card through
+    tools/jax_import.optimizer_state_from_jax; the read's host ms."""
+    import numpy as np
+
+    from diffmvs_tpu_torch.tools.jax_import import (optimizer_state_from_jax,
+                                                    state_dict_from_jax)
+    from diffmvs_tpu_torch.train import orbax_read
+
+    root = REPO / "tests" / "data" / "orbax_state"
+    want = np.load(root / "expected.npz")
+    trees, read_ms = {}, {}
+    for name in ("model_000001", "chunked"):
+        t0 = time.perf_counter()
+        trees[name] = orbax_read.read_orbax(str(root / name))
+        read_ms[name] = (time.perf_counter() - t0) * 1e3
+    got, empty = {}, []
+    for name, tree in trees.items():
+        for path, leaf in flatten_tree(tree).items():
+            if leaf is None or (isinstance(leaf, (dict, list)) and not leaf):
+                empty.append(f"{name}:{path}={type(leaf).__name__}")
+            else:
+                got[f"{name}:{path}"] = np.asarray(leaf)
+    keys = sorted(k for k in want.files if k != "__empty__")
+    check(sorted(got) == keys, f"jax_ckpt leaves {sorted(got)} vs {keys}")
+    for k in keys:
+        check(got[k].dtype == want[k].dtype and got[k].shape ==
+              want[k].shape and got[k].tobytes() == want[k].tobytes(),
+              f"jax_ckpt leaf {k} differs from expected.npz")
+    check(sorted(empty) == list(want["__empty__"]), f"jax_ckpt empty nodes "
+          f"{sorted(empty)}")
+    state = trees["model_000001"]["state"]
+    net, emit = toy_net()
+    net.load_state_dict(state_dict_from_jax(
+        {"params": state["params"], "batch_stats": state["batch_stats"]},
+        None, emit=emit))
+    net.to("cuda")
+    opt = torch.optim.AdamW(net.parameters())
+    position = optimizer_state_from_jax(state["opt_state"], None, net, opt,
+                                        emit=emit)
+    mu = state["opt_state"][1][0]["mu"]
+    adam = opt.state[net.conv.weight]
+    check(position == 2 and int(adam["step"]) == 2 and adam["exp_avg"]
+          .is_cuda and torch.equal(adam["exp_avg"].cpu(), torch.from_numpy(
+              np.transpose(mu["conv"]["kernel"], (3, 2, 0, 1)).copy())),
+          "jax_ckpt AdamW state")
+    log("jax_ckpt", leaves=len(keys), empty_nodes=len(empty),
+        bit_equal=True, libzstd=orbax_read.LIBZSTD,
+        read_ms=repr({k: round(v, 3) for k, v in read_ms.items()}),
+        adamw_step=int(adam["step"]), schedule_position=position)
 
 
 def make_sparse_model(root, n_images, hh, ww, n_points, seed=0):
@@ -2325,11 +2643,12 @@ def main():
            "k2_rows_bf16": {}, "k1_rows_sp": {}, "k1_rows_sp_bf16": {},
            "k2_rows_sp": {}, "k2_rows_sp_bf16": {}, "k3_rows": [],
            "operand_rows": []}
-    for phase in (phase_kernel, phase_train_kernel, phase_small, phase_main,
+    for phase in (phase_jax_ckpt, phase_kernel, phase_train_kernel,
+                  phase_small, phase_main,
                   phase_main_bf16, phase_main_b16, phase_train_small,
                   phase_train, phase_train_bf16, phase_k3_kernel, phase_export,
                   phase_train_cli, phase_train_cli_blend, phase_ddp,
-                  phase_sp, phase_colmap, phase_bench):
+                  phase_sp, phase_dp_shard, phase_colmap, phase_bench):
         phase(run)
 
     kernels = []

@@ -4,6 +4,7 @@
 
     runner = mvs.DepthRunner.from_checkpoint("casdiffmvs_dtu.ckpt",
                                              preset="casdiffmvs")
+    runner = mvs.DepthRunner.from_checkpoint("logdir/model_000015")  # JAX
     depth, confidences = runner(imgs, proj_matrices, depth_values)
 
 imgs: [B, V, H, W, 3] float32 in [0, 1] or raw uint8 (ref view first);
@@ -123,12 +124,14 @@ class DepthRunner:
     def from_checkpoint(cls, path: str, preset: str = "casdiffmvs",
                         device=None, seed: int = 0,
                         **overrides) -> "DepthRunner":
-        """Load one of the reference's released .ckpt files (a pickle:
-        load only checkpoints from a source you trust)."""
-        state = torch.load(path, map_location="cpu", weights_only=False)
-        sd = state["model"] if "model" in state else state
-        return cls.from_state_dict(sd, preset, device=device, seed=seed,
-                                   **overrides)
+        """Load a checkpoint: one of the reference's released .ckpt files
+        (a pickle: load only checkpoints from a source you trust), an
+        orbax checkpoint directory the JAX package wrote, or a training
+        logdir of either (its newest epoch; train/checkpoint.py)."""
+        from diffmvs_tpu_torch.train.checkpoint import load_variables
+
+        cfg = cls._preset(preset, overrides)
+        return cls(cfg, load_variables(path, cfg), device=device, seed=seed)
 
     def __call__(self, imgs, proj_matrices, depth_values,
                  generator: Optional[torch.Generator] = None

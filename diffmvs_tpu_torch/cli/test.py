@@ -17,10 +17,11 @@ What differs from the JAX CLI:
   * --warp_kernel keeps its choices so scripts run unchanged, but every
     value runs the same exact CUDA warp kernel (K1): the port has one exact
     kernel and no window-miss guard, so there is nothing to choose.
-  * --loadckpt takes a reference-format .ckpt ({"model": state_dict}) or a
-    training logdir of the port (its newest model_{epoch:06d}.ckpt).
-    Orbax checkpoint directories are the JAX package's format and are
-    refused.
+  * --loadckpt takes what the JAX CLI's takes, read without JAX: a
+    reference-format .ckpt ({"model": state_dict}), an orbax checkpoint
+    directory the JAX package wrote (train/orbax_read.py, through the
+    system's libzstd.so.1), or a training logdir of either package (its
+    newest epoch, model_{epoch:06d}.ckpt or model_{epoch:06d}/).
   * Images reach the card as the dataset's uint8 (pinned when the device
     is CUDA); the model normalizes them there.
   * The DDIM noise of batch i comes from torch.Generator(device) seeded
@@ -48,8 +49,8 @@ def build_argparser():
                    help="model preset; defaults per --method/--dataset")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--loadckpt", default=None,
-                   help="reference-format .ckpt, or a training logdir (its "
-                        "newest model_NNNNNN.ckpt)")
+                   help="reference-format .ckpt, orbax checkpoint dir, or a "
+                        "training logdir of either (its newest epoch)")
     p.add_argument("--outdir", default="./outputs")
     p.add_argument("--save_depth", action="store_true")
     p.add_argument("--dataset", default="general",
@@ -87,23 +88,19 @@ def default_preset(method: str, dataset: str) -> str:
     return f"{method}_mvg"
 
 
-def load_state_dict(path: str):
-    """The model weights of a reference-format .ckpt, or of the newest
-    model_NNNNNN.ckpt in a training logdir (a pickle: load only files you
-    trust)."""
-    from diffmvs_tpu_torch.train.checkpoint import (checkpoint_path,
-                                                    latest_epoch)
+def load_state_dict(path: str, cfg=None):
+    """The model weights (the reference's key names) of --loadckpt: a
+    reference-format .ckpt (a pickle: load only files you trust), an orbax
+    checkpoint directory of the JAX package, or a training logdir of
+    either (its newest epoch). An orbax checkpoint is carried into
+    CasDiffMVS(cfg)'s keys, so it needs cfg (train/checkpoint.py)."""
+    from diffmvs_tpu_torch.train.checkpoint import (is_orbax, load_variables,
+                                                    resolve)
 
-    if os.path.isdir(path):
-        epoch = latest_epoch(path)
-        if epoch is None:
-            raise ValueError(
-                f"--loadckpt {path}: no model_NNNNNN.ckpt in this directory "
-                f"(orbax checkpoint directories are the JAX package's "
-                f"format; the port loads .ckpt files)")
-        path = checkpoint_path(path, epoch)
-    state = torch.load(path, map_location="cpu", weights_only=False)
-    return state["model"] if "model" in state else state
+    if cfg is None and is_orbax(resolve(path)):
+        raise ValueError(f"--loadckpt {path}: an orbax checkpoint needs the "
+                         f"model's ModelConfig to map its variables")
+    return load_variables(path, cfg)
 
 
 def save_scene_depth(args, cfg, testlist) -> dict:
@@ -135,7 +132,8 @@ def save_scene_depth(args, cfg, testlist) -> dict:
             load_s = time.perf_counter() - t_ready
             stats["load_s"] += load_s
             if runner is None:
-                sd = load_state_dict(args.loadckpt) if args.loadckpt else None
+                sd = (load_state_dict(args.loadckpt, cfg) if args.loadckpt
+                      else None)
                 runner = DepthRunner(cfg, sd, device=dev, seed=0)
             t0 = time.perf_counter()
             imgs = batch["imgs"]

@@ -23,14 +23,25 @@ What differs from the JAX CLI:
     batch and keeps column shard s of every map (--sp: width sharding,
     parallel/spatial.py; the width a multiple of 32 * S). --dp -1 takes
     the world size / S; a world size other than D * S raises.
+  * --warp_kernel (default xla): the JAX package's
+    ModelConfig.warp_kernel, which the port's ModelConfig lacks (every
+    value runs the same CUDA kernels). It picks the data-parallel step as
+    the JAX package's run_training does (train/state.data_parallel_mode):
+    with --dp > 1, --sp 1 and a value other than xla the ranks train per
+    shard like JAX's shard_map step (per-rank BatchNorm statistics,
+    averaged after each step; per-rank noise and mask counts), else over
+    the global batch (SyncBatchNorm, the global batch's noise).
   * --loadckpt: a file ending in .ckpt (a reference checkpoint, or one
     the port wrote: the format is the same) goes through
     api.clean_reference_state_dict and loads with strict=True, raising on
     a missing or unexpected key as the JAX CLI's import raises on an
-    unmapped tensor. Anything else (a port logdir, whose newest
-    model_NNNNNN.ckpt is taken) loads through
-    train/checkpoint.load_weights_only with strict=False, as the JAX CLI's
-    weights-only path does, and prints the keys that were not loaded.
+    unmapped tensor. Anything else (an orbax checkpoint directory of the
+    JAX package, or a logdir of either package, whose newest epoch is
+    taken) loads through train/checkpoint.load_weights_only
+    non-strictly, as the JAX CLI's weights-only path does, and prints the
+    keys that were not loaded. --resume continues from the newest epoch
+    in --logdir in either format: a logdir the JAX package wrote resumes
+    with its AdamW moments, step, schedule position and epoch.
   * Python's `random` (the datasets' source-view draws) is seeded from
     --seed and the data rank (the ranks of a space group load the same
     samples); with --workers > 0 each worker seeds its own
@@ -47,6 +58,7 @@ import random
 import torch.distributed as dist
 
 from diffmvs_tpu_torch.config import MODEL_PRESETS, ModelConfig, TrainConfig
+from diffmvs_tpu_torch.train.state import WARP_KERNELS
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -74,7 +86,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="gradient-accumulation microbatches per step")
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--loadckpt", default=None,
-                   help=".ckpt file (strict), or a training logdir")
+                   help=".ckpt file (strict), an orbax checkpoint dir or a "
+                        "training logdir (weights only)")
     p.add_argument("--logdir", default="./checkpoints/debug")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--summary_freq", type=int, default=20)
@@ -88,6 +101,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=1,
                    help="width-sharding ranks per data rank")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--warp_kernel", default="xla", choices=list(WARP_KERNELS),
+                   help="the JAX configuration's warp kernel: picks the "
+                        "data-parallel step as JAX does (not xla, --dp > 1, "
+                        "--sp 1: per-shard BatchNorm)")
     # model triplet overrides (reference flag compatibility)
     p.add_argument("--numdepth_initial", type=int)
     p.add_argument("--numdepth", type=int)
@@ -164,7 +181,8 @@ def main(argv=None) -> dict:
     from diffmvs_tpu_torch.parallel.spatial import shard_width
     from diffmvs_tpu_torch.train.checkpoint import restore_checkpoint
     from diffmvs_tpu_torch.train.loop import run_eval, run_training
-    from diffmvs_tpu_torch.train.state import create_train_state
+    from diffmvs_tpu_torch.train.state import (create_train_state,
+                                               data_parallel_mode)
 
     args = build_argparser().parse_args(argv)
     cfg = train_config_from_args(args)
@@ -219,7 +237,8 @@ def main(argv=None) -> dict:
             if world_size > 1:
                 dist.barrier()
             return {"state": state, "eval": means if lead else None}
-        dp = DataParallel(state.model, space) if world_size > 1 else None
+        dp = (DataParallel(state.model, space, data_parallel_mode(
+            dp_size, cfg.sp, args.warp_kernel)) if world_size > 1 else None)
         run_training(state, cfg, train_loader, val_loader, args.logdir,
                      dp=dp)
         return {"state": state, "eval": None}

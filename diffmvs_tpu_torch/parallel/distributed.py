@@ -1,17 +1,27 @@
 """Data- and width-parallel training across processes (counterpart of
-diffmvs_tpu/parallel/mesh.py and the JAX package's GSPMD step).
+diffmvs_tpu/parallel/mesh.py and the JAX package's two training steps).
 
 The JAX package shards each global batch over the "data" axis of a device
-mesh. Its default training step (warp_kernel="xla") trains through GSPMD,
-where BatchNorm's batch statistics come out over the GLOBAL batch
-(parallel/mesh.py:7-8); only its shard_map step, which the Pallas warp
-kernels need, keeps per-shard statistics and averages them with pmean
-(train/step.py:124-127). The port follows the default: one process per
-card under torchrun, DistributedDataParallel averaging the gradients, and
-the SyncBatchNorm below, whose statistics are those of the global batch.
-train/step.train_step(dp=...) draws the diffusion noise of the global
-batch on every rank and normalizes each rank's loss by the global batch's
-mask counts, so a step equals the single-process step on the whole batch.
+mesh and trains it in one of two ways (diffmvs_tpu/train/loop.py:71-80),
+which DataParallel's `mode` names:
+  * "global", its default GSPMD step (warp_kernel="xla"): BatchNorm's
+    batch statistics come out over the GLOBAL batch
+    (parallel/mesh.py:7-8). The port: one process per card under
+    torchrun, DistributedDataParallel averaging the gradients, and the
+    SyncBatchNorm below, whose statistics are those of the global batch;
+    train/step.train_step(dp=...) draws the diffusion noise of the global
+    batch on every rank and normalizes each rank's loss by the global
+    batch's mask counts, so a step equals the single-process step on the
+    whole batch.
+  * "shard", its shard_map step (diffmvs_tpu/train/step.py:116-178),
+    taken with more than one data rank, sp = 1 and a warp kernel other
+    than "xla" (train/state.data_parallel_mode): the reference's
+    nn.DataParallel semantics. Each rank's nn.BatchNorms normalize with
+    its own rows' statistics, and after the step the running statistics
+    are averaged over the ranks (average_statistics: JAX's pmean); DDP
+    averages the gradients; each rank's loss divides by its own mask
+    counts and each rank draws its own noise from a generator folded with
+    its rank (generator(): JAX's fold_in of axis_index("data")).
 
 The mesh is (dp, sp) over dp * sp processes: rank r = d * sp + s holds
 rows d of each global batch and column shard s of every map (the "space"
@@ -29,6 +39,7 @@ So no data-axis group is built.
 from __future__ import annotations
 
 import os
+import random
 from typing import Dict
 
 import torch
@@ -230,22 +241,44 @@ def convert_sync_batchnorm(module: nn.Module):
     return module
 
 
+MODES = ("global", "shard")
+
+
+def fold_seed(seed: int, rank: int) -> int:
+    """A seed of its own for `rank`, drawn from seed and rank (the
+    counterpart of jax.random.fold_in): rank 0's differs from seed too."""
+    return random.Random(f"{seed}:fold:{rank}").getrandbits(63)
+
+
 class DataParallel:
     """The model's training view on the (dp, sp) mesh of the initialized
     (default) process group: with a space group (space_group(sp), sp > 1)
     its convolutions and GroupNorms converted to their width-sharded forms
-    (spatial.shard_width, in place), its BatchNorms to SyncBatchNorm over
-    the world (in place), and a DistributedDataParallel wrapper (`module`)
-    with broadcast_buffers=False: every rank updates the running
-    statistics alike from the global batch, so no rank's buffers
-    overwrite another's. The model itself stays unwrapped, for its
-    state_dict and for validation."""
+    (spatial.shard_width, in place); in mode "global" its BatchNorms
+    converted to SyncBatchNorm over the world (in place), in mode "shard"
+    left as the rank's own nn.BatchNorms; and a DistributedDataParallel
+    wrapper (`module`) with broadcast_buffers=False: in "global" every
+    rank updates the running statistics alike from the global batch, in
+    "shard" average_statistics() averages them after the step, so no
+    rank's buffers overwrite another's. The model itself stays unwrapped,
+    for its state_dict and for validation. "shard" shards the batch only,
+    as JAX's shard_map step asserts: with a space group it raises."""
 
-    def __init__(self, model: nn.Module, space=None):
+    def __init__(self, model: nn.Module, space=None, mode: str = "global"):
+        if mode not in MODES:
+            raise ValueError(f"data-parallel mode {mode!r} is not one of "
+                             f"{MODES}")
+        if mode == "shard" and space is not None:
+            raise ValueError(
+                f"data-parallel mode 'shard' shards the batch only: with "
+                f"sp = {space.size} use the 'global' mode (JAX's shard_map "
+                f"step asserts sp == 1 likewise)")
+        self.mode = mode
         self.space = space
         if space is not None:
             spatial.shard_width(model, space)
-        convert_sync_batchnorm(model)
+        if mode == "global":
+            convert_sync_batchnorm(model)
         dev = next(model.parameters()).device
         self.rank = dist.get_rank()
         self.world_size = dist.get_world_size()
@@ -255,6 +288,32 @@ class DataParallel:
         self.module = nn.parallel.DistributedDataParallel(
             model, device_ids=[dev] if dev.type == "cuda" else None,
             broadcast_buffers=False)
+
+    def generator(self, seed: int, device) -> torch.Generator:
+        """The generator the training loop draws the diffusion noise from:
+        in "global" seeded with `seed` on every rank (each draws the global
+        batch's noise and keeps its rows), in "shard" with fold_seed(seed,
+        data rank) (each draws its own rows' noise)."""
+        if self.mode == "shard":
+            seed = fold_seed(seed, self.data_rank)
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def average_statistics(self):
+        """Mode "shard": every BatchNorm's running mean and variance set to
+        their mean over the ranks (JAX's pmean of the updated
+        batch_stats), in one all_reduce."""
+        bufs = [b for m in self.module.module.modules()
+                if isinstance(m, nn.modules.batchnorm._BatchNorm)
+                for b in (m.running_mean, m.running_var)]
+        if not bufs:
+            return
+        with torch.no_grad():
+            flat = _all_reduce(torch.cat([b.flatten() for b in bufs]))
+            flat /= self.world_size
+            i = 0
+            for b in bufs:
+                b.copy_(flat[i:i + b.numel()].view_as(b))
+                i += b.numel()
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """t summed over the ranks (no gradient)."""

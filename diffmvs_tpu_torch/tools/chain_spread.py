@@ -198,13 +198,16 @@ def measure(state, cfg, batch, shape, dev, modes, chains, gclog):
     def span(xs):
         return [min(xs), max(xs)]
 
+    def corr(xs, ys):
+        # statistics.correlation rounds past +-1 (two chains: ~1 in 10)
+        return max(-1.0, min(1.0, statistics.correlation(xs, ys)))
+
     print(json.dumps({
         "chains": len(every),
-        "corr_s_issue_s": statistics.correlation(clock, issue),
-        "corr_s_cpu_s": statistics.correlation(
-            clock, [r["cpu_s"] for r in every]),
-        "corr_s_metronome_s": statistics.correlation(
-            clock, [r["metronome_s"] for r in every]),
+        "corr_s_issue_s": corr(clock, issue),
+        "corr_s_cpu_s": corr(clock, [r["cpu_s"] for r in every]),
+        "corr_s_metronome_s": corr(clock,
+                                   [r["metronome_s"] for r in every]),
         "issue_share": span([i / c for i, c in zip(issue, clock)]),
         "after_issue_s": span([c - i for i, c in zip(issue, clock)]),
         "cpu_per_issue": span([r["cpu_s"] / i

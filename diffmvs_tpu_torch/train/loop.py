@@ -12,7 +12,11 @@ one). The runs go on the state's device (train/state.create_train_state:
 CUDA unless device="cpu").
 
 Under data parallelism (dp, parallel/distributed.DataParallel) every rank
-runs the steps on its rows of each global batch; rank 0 alone logs, saves
+runs the steps on its rows of each global batch (in dp.mode: "global"
+draws the global batch's noise from the one seeded generator on every
+rank, "shard" each rank's own from a generator folded with its rank,
+DataParallel.generator; train/state.data_parallel_mode says which mode
+the JAX package's run_training takes); rank 0 alone logs, saves
 images and checkpoints and runs the validation over the whole val loader,
 while the other ranks wait at a barrier. With width sharding (dp.space)
 each rank holds its columns of those rows: the ranks of rank 0's space
@@ -98,7 +102,8 @@ def run_training(state, cfg, train_loader, val_loader, logdir: str,
     space = None if dp is None else dp.space
     validates = dp is None or dp.data_rank == 0
     logger = ScalarLogger(logdir) if lead else None
-    gen = torch.Generator(device=state.device).manual_seed(cfg.seed)
+    gen = (torch.Generator(device=state.device).manual_seed(cfg.seed)
+           if dp is None else dp.generator(cfg.seed, state.device))
     total_epochs = cfg.epochs if cfg.train_epochs == -1 else cfg.train_epochs
     steps_per_epoch = len(train_loader)
     start = state.epoch if start_epoch is None else start_epoch

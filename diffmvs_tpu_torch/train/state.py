@@ -43,6 +43,25 @@ class TrainState:
         return norm
 
 
+WARP_KERNELS = ("xla", "pallas", "pallas_full")
+
+
+def data_parallel_mode(dp: int, sp: int, warp_kernel: str = "xla") -> str:
+    """The data-parallel step the JAX package trains with on a (dp, sp)
+    mesh whose ModelConfig.warp_kernel is `warp_kernel`
+    (diffmvs_tpu/train/loop.py:74-76): "shard", its shard_map step
+    (per-rank BatchNorm statistics, averaged), with more than one data
+    rank, sp = 1 and a warp kernel other than "xla"; else "global", its
+    GSPMD step (global-batch statistics). The port's ModelConfig has no
+    warp_kernel (every value runs the same CUDA kernels), so the caller
+    passes the JAX configuration's (cli/train.py --warp_kernel)."""
+    if warp_kernel not in WARP_KERNELS:
+        raise ValueError(f"warp_kernel {warp_kernel!r} is not one of "
+                         f"{WARP_KERNELS}")
+    return "shard" if dp > 1 and sp == 1 and warp_kernel != "xla" \
+        else "global"
+
+
 def make_optimizer(params, lr: float, weight_decay: float):
     """AdamW with the reference's constants, decay on every parameter."""
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,

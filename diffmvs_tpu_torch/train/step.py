@@ -7,14 +7,21 @@ tensors and never wait for the host; the loop fetches scalars when it
 logs them.
 
 Data parallelism (train_step's dp, parallel/distributed.DataParallel)
-follows the JAX package's default GSPMD step, whose global batch is
-sharded over devices: every rank draws the timesteps and noise of the
-global batch from the one seeded generator and keeps its rows, each
-rank's masked means divide by the global batch's mask counts (times the
-world size, which DDP's mean of the gradients divides out), BatchNorm
-syncs over the global batch, and the scalars are averaged over the ranks
-(pmean). A step then equals the single-process step on the global batch.
-With accum_steps > 1 each rank splits its own rows into microbatches.
+follows one of the JAX package's two steps, by dp.mode. In "global" (its
+default GSPMD step, whose global batch is sharded over devices) every
+rank draws the timesteps and noise of the global batch from the one
+seeded generator and keeps its rows, each rank's masked means divide by
+the global batch's mask counts (times the world size, which DDP's mean of
+the gradients divides out), BatchNorm syncs over the global batch, and
+the scalars are averaged over the ranks (pmean). A step then equals the
+single-process step on the global batch. In "shard" (its shard_map step,
+diffmvs_tpu/train/step.py:116-178) each rank runs the single-process step
+on its rows: its own noise (its generator, DataParallel.generator, or its
+rows of the given train_overrides), its own mask counts and its own
+BatchNorm statistics; DDP averages the gradients, the updated running
+statistics are averaged after the backward pass, and the scalars over
+the ranks. With accum_steps > 1 each rank splits its own rows into
+microbatches.
 
 Width sharding (dp.space, the mesh's "space" axis): each rank holds its
 rows and its columns of the global batch (parallel/spatial.column_slice)
@@ -108,9 +115,9 @@ def compute_gradients(model, cfg, batch,
     many sequential microbatches (one microbatch of activations alive at a
     time) and averages their gradients; BatchNorm statistics update per
     microbatch. train_overrides, if given, is split the same way. With
-    dp (a DataParallel whose `module` is `model`), the masked means divide
-    by the global counts and the gradients are averaged over the ranks
-    once, after the last microbatch.
+    dp (a DataParallel whose `module` is `model`), the gradients are
+    averaged over the ranks once, after the last microbatch, and in mode
+    "global" the masked means divide by the global counts.
 
     Returns (loss, loss_dict, outputs, batch): means over the microbatches
     for the first two, the last microbatch's for the others.
@@ -123,7 +130,7 @@ def compute_gradients(model, cfg, batch,
         mb = batch if accum == 1 else _split(batch, accum, i)
         ov = (train_overrides if accum == 1 or train_overrides is None
               else _split(train_overrides, accum, i))
-        dens = (None if dp is None
+        dens = (None if dp is None or dp.mode == "shard"
                 else global_denominators(mb["mask"], dp.sum, dp.world_size))
         sync = (dp is None or i == accum - 1)
         with contextlib.nullcontext() if sync else model.no_sync():
@@ -160,8 +167,9 @@ def train_step(state, cfg, batch,
 
     dp: a parallel.distributed.DataParallel over state.model; `batch` is
     then this rank's rows (and, with dp.space, its columns) of the global
-    batch, and train_overrides (or, without them, the draw from
-    `generator`) the global batch's.
+    batch, and train_overrides the global batch's. Without them, in mode
+    "global" each rank draws the global batch's from `generator`, in mode
+    "shard" its own rows' from its own (DataParallel.generator).
 
     Returns (scalars, images): dicts of device tensors. scalars adds the
     gradient norm before clipping ("grad_norm") to the reference's set;
@@ -170,7 +178,12 @@ def train_step(state, cfg, batch,
     batch = batch_to_device(batch, state.device)
     model = state.model
     reduce = None
-    if dp is not None:
+    if dp is not None and dp.mode == "shard":
+        model = dp.module
+        if train_overrides is not None:
+            train_overrides = _split(train_overrides, dp.data_size,
+                                     dp.data_rank)
+    elif dp is not None:
         model = dp.module
         b, _, h, w = batch["imgs"].shape[:4]
         shard = (None if dp.space is None
@@ -184,6 +197,8 @@ def train_step(state, cfg, batch,
             train_overrides, (dp.data_rank, dp.data_size), shard)
     loss, loss_dict, outputs, mb = compute_gradients(
         model, cfg, batch, generator, train_overrides, dp)
+    if dp is not None and dp.mode == "shard":
+        dp.average_statistics()
     grad_norm = state.apply_gradients(cfg.grad_clip)
     with torch.no_grad():
         scalars = _scalars(loss, loss_dict, outputs, mb, reduce)

@@ -109,7 +109,8 @@ def test_import_loads_no_jax():
         "diffmvs_tpu_torch.models.casdiffmvs, "
         "diffmvs_tpu_torch.tools.jax_import, "
         "diffmvs_tpu_torch.utils.synthetic, diffmvs_tpu_torch.train.loop, "
-        "diffmvs_tpu_torch.train.checkpoint, diffmvs_tpu_torch.data.mvs, "
+        "diffmvs_tpu_torch.train.checkpoint, "
+        "diffmvs_tpu_torch.train.orbax_read, diffmvs_tpu_torch.data.mvs, "
         "diffmvs_tpu_torch.data.pipeline, diffmvs_tpu_torch.fusion.fuse, "
         "diffmvs_tpu_torch.fusion.metrics, diffmvs_tpu_torch.cli.test, "
         "diffmvs_tpu_torch.cli.eval_dtu, "

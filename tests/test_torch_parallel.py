@@ -24,6 +24,19 @@ that convolution's weight gradient by 1.3e-3 (leaf max 1.1e-2), at
 cosine 0.99998. The same 1.3e-3 separates the SyncBatchNorm step on one
 process from the nn.BatchNorm step, so the ranks add nothing to it.
 `python -m tests.test_torch_parallel` prints these figures.
+
+The "shard" mode (the JAX package's shard_map step: per-rank BatchNorm
+statistics, per-rank noise and mask counts, statistics and gradients
+averaged) is held against JAX's make_train_step_shmap on a two-device CPU
+mesh, the noise injected per shard on both sides, at the training-step
+gates of tests/test_torch_train.py's train_parity (loss rtol 2e-4,
+gradient cosine > 0.9999 globally and > 0.999 per live leaf, norms within
+2 %; BatchNorm statistics rtol 1e-4 / atol 1e-6 against JAX's rescaled by
+n/(n-1), since torch keeps the unbiased variance); and, with the noise
+drawn from each rank's folded generator, against the port's
+single-process step run per shard with that rank's generator, the
+gradients and statistics averaged (gradients max abs 1e-5, statistics
+1e-6, loss rel 1e-6: the same float32 work, summed in another order).
 """
 
 import dataclasses
@@ -123,6 +136,53 @@ def run_steps(cfg, batch, overrides, rows, parallel=None, sync_bn=False):
                      generator=torch.Generator().manual_seed(11))]
 
 
+def bn_hooks(model):
+    """{BatchNorm module name: (calls, elements per channel)}, filled as
+    the model runs."""
+    calls = {}
+
+    def hook(name):
+        def fn(mod, inputs):
+            x = inputs[0]
+            calls[name] = (calls.get(name, (0, 0))[0] + 1,
+                           x.numel() // x.shape[1])
+        return fn
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            mod.register_forward_pre_hook(hook(name))
+    return calls
+
+
+def shard_steps(cfg, batch, overrides, rank, world_size):
+    """Two "shard"-mode steps from the same fresh state (seed 0) on this
+    rank's rows: the first with the global batch's train_overrides (each
+    rank keeps its rows), the second drawing from the rank's generator
+    (DataParallel.generator(11)). step_results of each, the first with
+    its BatchNorm calls and the number of SyncBatchNorms."""
+    from diffmvs_tpu_torch.parallel.distributed import (DataParallel,
+                                                        SyncBatchNorm)
+    from diffmvs_tpu_torch.train.state import create_train_state
+    from diffmvs_tpu_torch.train.step import _split, train_step
+
+    local = _split(batch, world_size, rank)
+    out = []
+    for ov in (overrides, None):
+        state = create_train_state(cfg, steps_per_epoch=10, device="cpu",
+                                   seed=0)
+        dp = DataParallel(state.model, mode="shard")
+        calls = bn_hooks(state.model)
+        gen = dp.generator(11, "cpu")
+        scalars, _ = train_step(state, cfg, local, generator=gen,
+                                train_overrides=ov, dp=dp)
+        res = step_results(state, scalars)
+        res.update(bn_calls=calls, seed=gen.initial_seed(),
+                   sync_bn=sum(isinstance(m, SyncBatchNorm)
+                               for m in state.model.modules()))
+        out.append(res)
+    return out
+
+
 def run_rank(rank, world_size, port, outdir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -142,6 +202,7 @@ def run_rank(rank, world_size, port, outdir):
             dataclasses.replace(cfg, accum_steps=2),
             _split(batch, world_size, rank), overrides,
             parallel=DataParallel)
+        res["shard"] = shard_steps(cfg, batch, overrides, rank, world_size)
 
         x, g = bn_case()
         for dtype in (torch.float32, torch.bfloat16):
@@ -394,6 +455,213 @@ def test_mesh_and_backend_resolution(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         distributed.init_distributed()
+
+
+# ---------------------------------------------------------------------------
+# the "shard" mode: JAX's shard_map step
+# ---------------------------------------------------------------------------
+
+def _capture_gradients():
+    """An optax transformation that keeps the updates it is given (the
+    clipped gradients) as its state."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    return optax.GradientTransformation(
+        lambda params: {"g": jax.tree.map(jnp.zeros_like, params)},
+        lambda updates, state, params=None: (updates, {"g": updates}))
+
+
+class _Injected:
+    """The JAX model with each shard's timesteps and noise taken from the
+    batch (proj_matrices["train_overrides"], sharded with the rows), so
+    make_train_step_shmap runs unchanged with injected noise."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def apply(self, variables, imgs, projs, depth_values, **kw):
+        projs = dict(projs)
+        ov = {int(s): tuple(v) for s, v in
+              projs.pop("train_overrides").items()}
+        return self.model.apply(variables, imgs, projs, depth_values,
+                                train_overrides=ov, **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_shard_step():
+    """make_train_step_shmap of the JAX package on a two-device CPU mesh
+    (make_mesh(2, 1) over conftest's CPU devices), from the port's initial
+    weights (seed 0) carried over, on dp_case's CasDiffMVS batch with the
+    same injected noise: (loss, the clipped pmean'd gradients and the
+    pmean'd BatchNorm statistics as port state_dicts)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from diffmvs_tpu.config import CASDIFFMVS
+    from diffmvs_tpu.config import TrainConfig as JaxTrainConfig
+    from diffmvs_tpu.models.casdiffmvs import CasDiffMVS as JaxCasDiffMVS
+    from diffmvs_tpu.parallel.mesh import make_mesh, replicate
+    from diffmvs_tpu.tools.torch_import import import_torch_state_dict
+    from diffmvs_tpu.train.state import MVSTrainState
+    from diffmvs_tpu.train.step import make_train_step_shmap
+    from diffmvs_tpu_torch.tools.jax_import import state_dict_from_jax
+
+    cfg, batch, overrides = dp_case("casdiffmvs", WORLD)
+    cfg_j = dataclasses.replace(CASDIFFMVS, numdepth_initial=8, numdepth=32)
+    port = create_train_state(cfg, steps_per_epoch=10, device="cpu", seed=0)
+    variables = import_torch_state_dict(port.model.state_dict(), cfg_j)
+    tx = optax.chain(optax.clip_by_global_norm(cfg.grad_clip),
+                     _capture_gradients())
+    mesh = make_mesh(WORLD, 1)
+    state = replicate(mesh, MVSTrainState.create(
+        apply_fn=None, params=variables["params"],
+        batch_stats=variables["batch_stats"], tx=tx))
+    jbatch = dict(batch, proj_matrices=dict(
+        batch["proj_matrices"], train_overrides={
+            str(s): [t.astype(np.int32), n]
+            for s, (t, n) in overrides.items()}))
+    jbatch = jax.device_put(jbatch, NamedSharding(mesh, P("data")))
+    step = make_train_step_shmap(
+        _Injected(JaxCasDiffMVS(cfg_j)),
+        JaxTrainConfig(model=cfg_j, batch_size=cfg.batch_size), mesh,
+        donate=False)
+    new_state, scalars, _ = jax.device_get(
+        step(state, jbatch, jax.random.PRNGKey(1)))
+    grads = state_dict_from_jax({"params": new_state.opt_state[1]["g"],
+                                 "batch_stats": new_state.batch_stats},
+                                cfg.model)
+    stats = state_dict_from_jax({"params": new_state.params,
+                                 "batch_stats": new_state.batch_stats},
+                                cfg.model)
+    return float(scalars["loss"]), grads, stats
+
+
+def test_shard_step_matches_jax_shard_map_step(ranks, jax_shard_step):
+    """Every rank's "shard" step (nn.BatchNorm kept, its rows' noise from
+    the global overrides) against JAX's shard_map step: the loss, the
+    clipped averaged gradients and the averaged BatchNorm statistics."""
+    loss_j, grads_j, stats_j = jax_shard_step
+    for res in ranks:
+        got = res["shard"][0]
+        assert got["sync_bn"] == 0
+        np.testing.assert_allclose(got["scalars"]["loss"], loss_j,
+                                   rtol=2e-4)
+        keys = sorted(got["grads"])
+        ours = {k: got["grads"][k].double().flatten() for k in keys}
+        ref = {k: grads_j[k].double().flatten() for k in keys}
+        cos = _cosine(torch.cat([ours[k] for k in keys]),
+                      torch.cat([ref[k] for k in keys]))
+        assert cos > 0.9999, cos
+        scale = max(float(r.abs().max()) for r in ref.values())
+        for k in keys:
+            nr = float(ref[k].norm())
+            if nr < 1e-7 * scale:         # numerically dead leaf
+                assert float(ours[k].norm()) < 1e-5 * scale + 1e-12, k
+                continue
+            assert _cosine(ours[k], ref[k]) > 0.999, k
+            assert abs(float(ours[k].norm()) - nr) < 0.02 * nr \
+                + 1e-5 * scale, k
+        assert got["bn_calls"]
+        for name, (calls, n) in got["bn_calls"].items():
+            decay = 0.9 ** calls
+            torch.testing.assert_close(
+                got["buffers"][f"{name}.running_mean"],
+                stats_j[f"{name}.running_mean"], rtol=1e-4, atol=1e-6)
+            want = decay + (stats_j[f"{name}.running_var"] - decay) \
+                * n / (n - 1)
+            torch.testing.assert_close(
+                got["buffers"][f"{name}.running_var"], want, rtol=1e-4,
+                atol=1e-6)
+        for k, v in ranks[0]["shard"][0]["grads"].items():
+            assert torch.equal(got["grads"][k], v), k
+
+
+def test_shard_step_is_the_mean_of_per_shard_steps(ranks):
+    """The "shard" step drawing its noise from each rank's generator
+    (seeded fold_seed(11, rank)) against the port's single-process step on
+    each shard's rows with that generator: the ranks' gradients are the
+    mean of the shards' (before the clip), their statistics the mean of
+    the shards', their scalars the mean of the shards'."""
+    from diffmvs_tpu_torch.train.step import (_split, batch_to_device,
+                                              compute_gradients)
+
+    cfg, batch, _ = dp_case("casdiffmvs", WORLD)
+    seeds = [distributed.fold_seed(11, r) for r in range(WORLD)]
+    assert len(set(seeds)) == WORLD and 11 not in seeds
+    grads, stats, losses = [], [], []
+    for r in range(WORLD):
+        state = create_train_state(cfg, steps_per_epoch=10, device="cpu",
+                                   seed=0)
+        loss, _, _, _ = compute_gradients(
+            state.model, cfg, batch_to_device(_split(batch, WORLD, r), "cpu"),
+            generator=torch.Generator().manual_seed(seeds[r]))
+        grads.append({k: p.grad.clone()
+                      for k, p in state.model.named_parameters()})
+        stats.append({k: v.clone() for k, v in
+                      state.model.named_buffers() if "running_" in k})
+        losses.append(float(loss))
+    mean = {k: sum(g[k] for g in grads) / WORLD for k in grads[0]}
+    norm = torch.cat([g.flatten() for g in mean.values()]).norm()
+    clip = min(1.0, cfg.grad_clip / (float(norm) + 1e-6))
+    for r, res in enumerate(ranks):
+        got = res["shard"][1]
+        assert got["seed"] == seeds[r]
+        np.testing.assert_allclose(got["scalars"]["loss"],
+                                   sum(losses) / WORLD, rtol=1e-6)
+        for k, v in mean.items():
+            torch.testing.assert_close(got["grads"][k], v * clip, rtol=0,
+                                       atol=1e-5)
+        for k in stats[0]:
+            torch.testing.assert_close(
+                got["buffers"][k], sum(s[k] for s in stats) / WORLD,
+                rtol=1e-6, atol=1e-6)
+
+
+def test_shard_mode_refuses_width_sharding():
+    class Space:
+        size = 2
+
+    with pytest.raises(ValueError, match="'shard'.*sp = 2"):
+        distributed.DataParallel(nn.Linear(2, 2), Space(), mode="shard")
+    with pytest.raises(ValueError, match="mode 'ring'"):
+        distributed.DataParallel(nn.Linear(2, 2), mode="ring")
+
+
+@pytest.mark.parametrize("dp,sp", [(1, 1), (2, 1), (4, 1), (8, 1), (1, 2),
+                                   (2, 2), (1, 4)])
+def test_run_training_picks_shard_where_jax_does(tmp_path, monkeypatch,
+                                                 dp, sp):
+    """The JAX package's run_training, on a (dp, sp) mesh of conftest's
+    CPU devices and each warp kernel, builds its shard_map step exactly
+    where train/state.data_parallel_mode says "shard", and its GSPMD step
+    where it says "global"."""
+    import diffmvs_tpu.train.loop as jloop
+    import diffmvs_tpu.train.step as jstep
+    from diffmvs_tpu.config import CASDIFFMVS
+    from diffmvs_tpu.config import TrainConfig as JaxTrainConfig
+    from diffmvs_tpu.parallel.mesh import make_mesh
+
+    from diffmvs_tpu_torch.train.state import data_parallel_mode
+
+    built = []
+    monkeypatch.setattr(jstep, "make_train_step_shmap",
+                        lambda *a, **k: built.append("shard"))
+    monkeypatch.setattr(jloop, "make_train_step",
+                        lambda *a, **k: built.append("global"))
+    monkeypatch.setattr(jloop, "make_eval_step", lambda *a, **k: None)
+    for kernel in ("xla", "pallas", "pallas_full"):
+        cfg = JaxTrainConfig(model=dataclasses.replace(
+            CASDIFFMVS, warp_kernel=kernel), epochs=0)
+        jloop.run_training(None, cfg, None, [], [], make_mesh(dp, sp),
+                           str(tmp_path))
+        assert built.pop() == data_parallel_mode(dp, sp, kernel), \
+            (dp, sp, kernel)
+    with pytest.raises(ValueError, match="warp_kernel 'auto'"):
+        data_parallel_mode(2, 1, "auto")
 
 
 # ---------------------------------------------------------------------------
