@@ -1,0 +1,120 @@
+"""Whole runs of toy cells on the CPU, past the harness's look for a card
+(and one real cell on the card, marked `chip`):
+the result line's shape with --trace 0 and 1; correct false under each
+fault a cell can have, and under the control (the reference at float8
+in the program's place); and a configuration and a cell that are only
+new files and entries, picked up by name."""
+
+import json
+
+import pytest
+import torch
+
+from mvsbench import calibrate, check, manifest, run
+from mvsbench.tests import toy
+
+CPU = torch.device("cpu")
+SEED = 2 ** 31 + 99
+REAL = {}
+for _w in manifest.load()["workloads"]:
+    REAL.setdefault(_w["traffic"], _w["name"])
+KIND_LIMITS = {
+    kind: manifest.read_json(manifest.HERE / "limits" / f"{REAL[mix]}.json")
+    for mix, kind in (("batch16", "batch"), ("request1", "request"),
+                      ("train4", "train"))}
+
+
+@pytest.fixture(scope="module")
+def bench(tmp_path_factory):
+    root = tmp_path_factory.mktemp("toybench")
+    return root, toy.write(root, KIND_LIMITS)
+
+
+CELLS = ["toy-casdiffmvs-dtu.batch2", "toy-diffmvs-dtu.batch2",
+         "toy-casdiffmvs-dtu.request1", "toy-casdiffmvs-dtu.train2"]
+
+
+@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("trace", [False, True])
+def test_run(bench, name, trace):
+    root, doc = bench
+    cell = toy.cell(root, doc, name)
+    res = run.measure(cell, SEED, 0.5, trace, CPU)
+    compared = res["compared"]
+    assert res["correct"] is all(c["value"] <= c["limit"]
+                                 for c in compared.values())
+    if cell.traffic["kind"] == "train":
+        # the CPU's bfloat16 convolutions round otherwise than cuDNN's:
+        # at toy sizes the gradient numbers read ~0.01, about the card's
+        # limits, while the loss reads well inside them
+        assert compared["loss_gap"]["value"] <= compared["loss_gap"]["limit"]
+    else:
+        assert res["correct"] is True, compared
+    want = {m["name"] for m in (cell.per_layer if trace else cell.end_to_end)}
+    assert set(res["metrics"]) <= want
+    if not trace:
+        assert set(res["metrics"]) == want
+    assert list(res)[-1] == "compared"
+    assert set(res["compared"]) == set(check.COMPARED[cell.traffic["kind"]])
+    json.dumps(run.finite(res))
+
+
+FAULTS = [("toy-casdiffmvs-dtu.batch2", "half_batch"),
+          ("toy-casdiffmvs-dtu.batch2", "altered"),
+          ("toy-diffmvs-dtu.batch2", "altered"),
+          ("toy-casdiffmvs-dtu.request1", "altered"),
+          ("toy-casdiffmvs-dtu.train2", "half_batch"),
+          ("toy-casdiffmvs-dtu.train2", "unchanged")]
+
+
+@pytest.mark.parametrize("name,fault", FAULTS)
+def test_fault_is_not_correct(bench, name, fault):
+    root, doc = bench
+    cell = toy.cell(root, doc, name)
+    res = run.measure(cell, SEED, 0.2, False, CPU, fault=fault)
+    assert res["correct"] is False, res["compared"]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_control_is_not_correct(bench, name):
+    root, doc = bench
+    cell = toy.cell(root, doc, name)
+    got, _ = calibrate.control_numbers(cell, SEED, CPU)
+    ok, compared = check.judge(cell.traffic["kind"], got, cell.limits)
+    assert not ok, compared
+
+
+def test_new_config_and_cell_need_no_edit(tmp_path):
+    """A configuration file, a traffic file, a limits file and a cell
+    entry: nothing else changes."""
+    doc = toy.write(tmp_path, KIND_LIMITS)
+    cfg = toy.toy_config("diffmvs-dtu")
+    cfg["name"] = "toy-new"
+    cfg["model"]["numdepth_initial"] = 16
+    (tmp_path / "configs" / "toy-new.json").write_text(json.dumps(cfg))
+    mix = dict(toy.TOY_TRAFFIC["request1"], pool=3)
+    (tmp_path / "traffic" / "pool3.json").write_text(json.dumps(mix))
+    (tmp_path / "limits" / "toy-new.pool3.json").write_text(
+        json.dumps(KIND_LIMITS["request"]))
+    doc["workloads"].append({"name": "toy-new.pool3", "config": "toy-new",
+                             "traffic": "pool3", "chips": 1, "why": "new"})
+    for m in doc["end_to_end"] + doc["per_layer"]:
+        if "toy-casdiffmvs-dtu.request1" in m.get("workloads", []):
+            m["workloads"].append("toy-new.pool3")
+    cell = toy.cell(tmp_path, doc, "toy-new.pool3")
+    assert cell.config["model"]["numdepth_initial"] == 16
+    assert {m["name"] for m in cell.end_to_end} == {
+        "request_p90_ms", "peak_gib", "setup_s"}
+    res = run.measure(cell, SEED, 0.3, False, CPU)
+    assert res["correct"] is True
+    assert "request_p90_ms" in res["metrics"]
+
+
+@pytest.mark.chip
+def test_cell_on_the_card(card):
+    """A real cell, briefly, on the card: the timed path against the
+    reference at the timed sizes."""
+    cell = manifest.Cell(manifest.load(), "casdiffmvs-dtu.request1")
+    res = run.measure(cell, SEED, 3.0, False, card)
+    assert res["correct"] is True, res["compared"]
+    assert res["metrics"]["request_p90_ms"]["value"] > 0
