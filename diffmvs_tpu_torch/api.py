@@ -26,6 +26,7 @@ import torch
 
 from diffmvs_tpu_torch.config import MODEL_PRESETS, ModelConfig
 from diffmvs_tpu_torch.models.casdiffmvs import CasDiffMVS
+from diffmvs_tpu_torch.utils import profiling
 
 # constant schedule buffers the reference registers on each refinement
 # block; the port recomputes them (models/schedule.py)
@@ -52,6 +53,19 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("diffmvs_tpu_torch: CUDA is not available; pass "
                            "device='cpu' to run on the CPU")
     return dev
+
+
+def upload(x, device, non_blocking: bool = False) -> torch.Tensor:
+    """x (a numpy array or a tensor) as a tensor on `device`, counting the
+    bytes copied from host memory as upload.pinned_bytes or
+    upload.pageable_bytes (a numpy array's memory counts as pageable)."""
+    x = torch.as_tensor(x)
+    out = x.to(device, non_blocking=non_blocking)
+    if x.device.type == "cpu" and out.device.type != "cpu":
+        profiling.count("upload.pinned_bytes" if x.is_pinned()
+                        else "upload.pageable_bytes",
+                        x.numel() * x.element_size())
+    return out
 
 
 def clean_reference_state_dict(state_dict: Dict) -> Dict:
@@ -137,15 +151,18 @@ class DepthRunner:
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, list]:
         """Returns (depth [B, H, W], [full-res confidences]) as tensors on
-        the runner's device."""
+        the runner's device. One "runner.call" span, the inputs' copy to
+        the device in "runner.upload" and the model in "runner.forward"
+        (utils/profiling.py)."""
         dev = self.device
-        with torch.inference_mode():
-            imgs = torch.as_tensor(imgs, device=dev)
-            projs = {k: torch.as_tensor(v, device=dev)
-                     for k, v in proj_matrices.items()}
-            dv = torch.as_tensor(depth_values, device=dev)
+        with profiling.span("runner.call"), torch.inference_mode():
+            with profiling.span("runner.upload"):
+                imgs = upload(imgs, dev)
+                projs = {k: upload(v, dev) for k, v in proj_matrices.items()}
+                dv = upload(depth_values, dev)
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(self.seed)
-            out = self.model(imgs, projs, dv, generator=generator,
-                             export=True)
+            with profiling.span("runner.forward"):
+                out = self.model(imgs, projs, dv, generator=generator,
+                                 export=True)
         return out["depth"][-1], out["photometric_confidence"]

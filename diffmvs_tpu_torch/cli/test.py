@@ -33,11 +33,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
-import time
 
 import numpy as np
 import torch
+
+from diffmvs_tpu_torch.utils import profiling
 
 
 def build_argparser():
@@ -107,7 +109,8 @@ def save_scene_depth(args, cfg, testlist) -> dict:
     """Export depth maps for the scenes in `testlist`. Returns the number
     of views and the host seconds spent waiting for batches (load), in
     the model with the results back on the host (infer) and writing files
-    (write): summed, and per batch under "batches"."""
+    (write): summed, and per batch under "batches". The seconds are those
+    of the spans export.load, export.infer and export.write."""
     from PIL import Image
 
     from diffmvs_tpu_torch.api import DepthRunner, resolve_device
@@ -127,57 +130,61 @@ def save_scene_depth(args, cfg, testlist) -> dict:
         loader = DataPipeline(ds, args.batch_size, shuffle=False,
                               drop_last=False, num_workers=args.workers,
                               pin_memory=dev.type == "cuda")
-        t_ready = time.perf_counter()
-        for batch_idx, batch in enumerate(loader):
-            load_s = time.perf_counter() - t_ready
-            stats["load_s"] += load_s
+        batches = None
+        for batch_idx in itertools.count():
+            with profiling.span("export.load") as load:
+                if batches is None:
+                    batches = iter(loader)
+                batch = next(batches, None)
+            if batch is None:
+                break
+            stats["load_s"] += load.seconds
             if runner is None:
                 sd = (load_state_dict(args.loadckpt, cfg) if args.loadckpt
                       else None)
                 runner = DepthRunner(cfg, sd, device=dev, seed=0)
-            t0 = time.perf_counter()
             imgs = batch["imgs"]
             projs = batch["proj_matrices"]
             depth_values = batch["depth_values"].numpy()
             bsz = imgs.shape[0]
 
-            gen = torch.Generator(device=dev).manual_seed(
-                args.seed + batch_idx)
-            depth, confs = runner(imgs, projs, batch["depth_values"],
-                                  generator=gen)
-            depth = depth.cpu().numpy()
-            confs = [c.cpu().numpy() for c in confs]
-            t1 = time.perf_counter()
-            stats["infer_s"] += t1 - t0
-            times.append((t1 - t0) / bsz)
-            print(f"Iter {batch_idx}/{len(loader)}, Time:{t1 - t0:.3f} "
+            with profiling.span("export.infer") as infer:
+                gen = torch.Generator(device=dev).manual_seed(
+                    args.seed + batch_idx)
+                depth, confs = runner(imgs, projs, batch["depth_values"],
+                                      generator=gen)
+                depth = depth.cpu().numpy()
+                confs = [c.cpu().numpy() for c in confs]
+            stats["infer_s"] += infer.seconds
+            times.append(infer.seconds / bsz)
+            print(f"Iter {batch_idx}/{len(loader)}, Time:{infer.seconds:.3f} "
                   f"Res:{tuple(imgs.shape)}")
 
-            cams = projs["stage4"].numpy()
-            for j in range(bsz):
-                filename = batch["filename"][j]
-                depth_max = 1.0 / depth_values[j, 0]
-                depth_min = 1.0 / depth_values[j, -1]
+            with profiling.span("export.write") as write:
+                cams = projs["stage4"].numpy()
+                for j in range(bsz):
+                    filename = batch["filename"][j]
+                    depth_max = 1.0 / depth_values[j, 0]
+                    depth_min = 1.0 / depth_values[j, -1]
 
-                def outpath(sub, ext, _f=filename):
-                    path = os.path.join(args.outdir, _f.format(sub, ext))
-                    os.makedirs(os.path.dirname(path), exist_ok=True)
-                    return path
+                    def outpath(sub, ext, _f=filename):
+                        path = os.path.join(args.outdir, _f.format(sub, ext))
+                        os.makedirs(os.path.dirname(path), exist_ok=True)
+                        return path
 
-                save_pfm(outpath("depth_est", ".pfm"), depth[j])
-                write_cam(outpath("cams", "_cam.txt"), cams[j, 0], depth_max,
-                          depth_min)
-                Image.fromarray(imgs[j, 0].numpy()).save(
-                    outpath("images", ".jpg"))
-                n_conf = 3 if args.method == "casdiffmvs" else 2
-                for i in range(n_conf):
-                    save_pfm(outpath(f"conf{i}", ".pfm"), confs[i][j])
-            t_ready = time.perf_counter()
+                    save_pfm(outpath("depth_est", ".pfm"), depth[j])
+                    write_cam(outpath("cams", "_cam.txt"), cams[j, 0],
+                              depth_max, depth_min)
+                    Image.fromarray(imgs[j, 0].numpy()).save(
+                        outpath("images", ".jpg"))
+                    n_conf = 3 if args.method == "casdiffmvs" else 2
+                    for i in range(n_conf):
+                        save_pfm(outpath(f"conf{i}", ".pfm"), confs[i][j])
             stats["views"] += bsz
-            stats["write_s"] += t_ready - t1
-            stats["batches"].append({"views": bsz, "load_s": load_s,
-                                     "infer_s": t1 - t0,
-                                     "write_s": t_ready - t1})
+            stats["write_s"] += write.seconds
+            stats["batches"].append({"views": bsz, "load_s": load.seconds,
+                                     "infer_s": infer.seconds,
+                                     "write_s": write.seconds})
     if times:
         print("avg_time", float(np.mean(times)))
     return stats
@@ -240,8 +247,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Returns {"export": save_scene_depth's seconds (None without
-    --save_depth), "fusion_s": host seconds of the fusion, "points":
-    {ply: points}}."""
+    --save_depth), "fusion_s": host seconds of the fusion (its span
+    export.fusion), "points": {ply: points}}."""
     from diffmvs_tpu_torch.config import MODEL_PRESETS
 
     args = parse_args(argv)
@@ -259,10 +266,9 @@ def main(argv=None) -> dict:
 
     export = (save_scene_depth(args, cfg, testlist)
               if args.save_depth else None)
-    t0 = time.perf_counter()
-    points = run_fusion(args, testlist)
-    return {"export": export, "fusion_s": time.perf_counter() - t0,
-            "points": points}
+    with profiling.span("export.fusion") as fusion:
+        points = run_fusion(args, testlist)
+    return {"export": export, "fusion_s": fusion.seconds, "points": points}
 
 
 if __name__ == "__main__":

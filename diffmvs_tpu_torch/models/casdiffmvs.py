@@ -37,6 +37,11 @@ Compute dtype (cfg.compute_dtype, the JAX package's policy): the conv
 stacks compute in cfg.dtype over float32 parameters; the uint8 / 255 input
 normalization, the geometry, the soft-argmax, the convex upsampling (the
 mask logits go to float32 first) and the diffusion state stay float32.
+
+Spans (utils/profiling.py): "model.features" (FeatureNet over every view,
+ContextNet over the reference view) and one "model.stage<k>" a stage
+(its body, the upsampling at its end included; DiffMVS has no stage3),
+each taking its device time while a profiler runs.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from diffmvs_tpu_torch.nn.context import ContextNet
 from diffmvs_tpu_torch.nn.feature import FeatureNet
 from diffmvs_tpu_torch.nn.layers import Conv2d, ConvBnAct
 from diffmvs_tpu_torch.ops.resize import upsample_nearest
+from diffmvs_tpu_torch.utils import profiling
 
 
 class HiddenInit(nn.Sequential):
@@ -186,9 +192,10 @@ class CasDiffMVS(nn.Module):
         # views fold into the batch; the permuted NHWC input is a
         # channels-last NCHW view
         nchw = imgs.permute(0, 1, 4, 2, 3)
-        feats = self.feature(nchw.reshape((b * v,) + nchw.shape[2:]))
-        features = {k: views_nhwc(x, b, v) for k, x in feats.items()}
-        contexts = self.context(nchw[:, 0])
+        with profiling.span("model.features", device=imgs.device):
+            feats = self.feature(nchw.reshape((b * v,) + nchw.shape[2:]))
+            features = {k: views_nhwc(x, b, v) for k, x in feats.items()}
+            contexts = self.context(nchw[:, 0])
 
         depth_predictions = []
         confs = []           # per-iteration confidences (non-export)
@@ -199,72 +206,75 @@ class CasDiffMVS(nn.Module):
             if stage_idx > 0 and cfg.stage_iters[stage_idx] == 0:
                 continue
             stage_key = f"stage{stage_idx + 1}"
-            feat_list = features[stage_key]
-            cols = None
-            if shard is not None:       # the warp reads whole source maps
-                stride = 2 ** (3 - stage_idx)
-                cols = shard.at(stride)
-                feat_list = [feat_list[0]] + [shard.gather(f, 2, stride)
-                                              for f in feat_list[1:]]
-            proj_stage = proj_matrices[stage_key].float()
-            context_stage = contexts[stage_key]
-            h, w = feat_list[0].shape[1], feat_list[0].shape[2]
+            with profiling.span("model." + stage_key, device=imgs.device):
+                feat_list = features[stage_key]
+                cols = None
+                if shard is not None:       # the warp reads whole source maps
+                    stride = 2 ** (3 - stage_idx)
+                    cols = shard.at(stride)
+                    feat_list = [feat_list[0]] + [shard.gather(f, 2, stride)
+                                                  for f in feat_list[1:]]
+                proj_stage = proj_matrices[stage_key].float()
+                context_stage = contexts[stage_key]
+                h, w = feat_list[0].shape[1], feat_list[0].shape[2]
 
-            if stage_idx == 0:
-                nd0 = cfg.numdepth_initial
-                samples = torch.arange(nd0, dtype=torch.float32,
-                                       device=imgs.device) / (nd0 - 1.0)
-                samples = samples.reshape(1, nd0, 1, 1).expand(b, nd0, h, w)
-                depth_hyp = scale_inv_depth(samples)[1]
+                if stage_idx == 0:
+                    nd0 = cfg.numdepth_initial
+                    samples = torch.arange(nd0, dtype=torch.float32,
+                                           device=imgs.device) / (nd0 - 1.0)
+                    samples = samples.reshape(1, nd0, 1, 1)
+                    samples = samples.expand(b, nd0, h, w)
+                    depth_hyp = scale_inv_depth(samples)[1]
 
-                ctx = F.relu(context_stage)
-                mask, inv_depth, init_depth, view_weights, conf = \
-                    self.depthnet(feat_list, ctx, proj_stage, depth_hyp,
-                                  scale_inv_depth,
-                                  x_off=0 if cols is None else cols.start)
-                depth_predictions.append(init_depth)
-                confidences.append(upsample_nearest(conf, 2 ** 3))
-                inv_up = upsample_with_mask(inv_depth, mask.float(), 2,
-                                            space)
+                    ctx = F.relu(context_stage)
+                    mask, inv_depth, init_depth, view_weights, conf = \
+                        self.depthnet(feat_list, ctx, proj_stage, depth_hyp,
+                                      scale_inv_depth,
+                                      x_off=0 if cols is None else cols.start)
+                    depth_predictions.append(init_depth)
+                    confidences.append(upsample_nearest(conf, 2 ** 3))
+                    inv_up = upsample_with_mask(inv_depth, mask.float(), 2,
+                                                space)
+                    depth_predictions.append(scale_inv_depth(inv_up)[1])
+                    continue
+
+                hd = cfg.hidden_dim[stage_idx]
+                inv_cur = to_disp(depth_predictions[-1].detach())
+                vw_stage = upsample_nearest(view_weights.detach(),
+                                            2 ** stage_idx,
+                                            spatial_axes=(2, 3))
+                hidden_d = torch.tanh(
+                    self.hidden_init[stage_idx - 1](context_stage[:, :hd]))
+                ctx = F.relu(context_stage[:, hd:])
+
+                inv_init = inv_gt = t_noise = None
+                if train:
+                    init_up = upsample_nearest(depth_predictions[0],
+                                               2 ** stage_idx)
+                    inv_init = to_disp(init_up).detach()
+                    inv_gt = to_disp(depth_gt[stage_key])
+                    if train_overrides is not None:
+                        t_noise = train_overrides.get(stage_idx)
+
+                block = getattr(self, f"update_block_depth{stage_idx + 1}")
+                mask, _, inv_seq, conf_seq = block(
+                    inv_cur, hidden_d, ctx, feat_list, proj_stage, depth_min,
+                    depth_max, vw_stage, generator=generator,
+                    gt_inv_depth=inv_gt, inv_init_depth=inv_init, train=train,
+                    t_noise=t_noise, cols=cols)
+
+                if train or not export:
+                    for inv_i in inv_seq:
+                        depth_predictions.append(scale_inv_depth(inv_i)[1])
+                    confs.extend(conf_seq)
+                else:
+                    depth_predictions.append(scale_inv_depth(inv_seq[-1])[1])
+                    confidences.append(
+                        upsample_nearest(conf_seq[-1], 2 ** (3 - stage_idx)))
+
+                inv_up = upsample_with_mask(inv_seq[-1], mask.float(),
+                                            cfg.up_ratio, space)
                 depth_predictions.append(scale_inv_depth(inv_up)[1])
-                continue
-
-            hd = cfg.hidden_dim[stage_idx]
-            inv_cur = to_disp(depth_predictions[-1].detach())
-            vw_stage = upsample_nearest(view_weights.detach(), 2 ** stage_idx,
-                                        spatial_axes=(2, 3))
-            hidden_d = torch.tanh(
-                self.hidden_init[stage_idx - 1](context_stage[:, :hd]))
-            ctx = F.relu(context_stage[:, hd:])
-
-            inv_init = inv_gt = t_noise = None
-            if train:
-                init_up = upsample_nearest(depth_predictions[0],
-                                           2 ** stage_idx)
-                inv_init = to_disp(init_up).detach()
-                inv_gt = to_disp(depth_gt[stage_key])
-                if train_overrides is not None:
-                    t_noise = train_overrides.get(stage_idx)
-
-            block = getattr(self, f"update_block_depth{stage_idx + 1}")
-            mask, _, inv_seq, conf_seq = block(
-                inv_cur, hidden_d, ctx, feat_list, proj_stage, depth_min,
-                depth_max, vw_stage, generator=generator,
-                gt_inv_depth=inv_gt, inv_init_depth=inv_init, train=train,
-                t_noise=t_noise, cols=cols)
-
-            if train or not export:
-                for inv_i in inv_seq:
-                    depth_predictions.append(scale_inv_depth(inv_i)[1])
-                confs.extend(conf_seq)
-            else:
-                depth_predictions.append(scale_inv_depth(inv_seq[-1])[1])
-                confidences.append(
-                    upsample_nearest(conf_seq[-1], 2 ** (3 - stage_idx)))
-
-            inv_up = upsample_with_mask(inv_seq[-1], mask.float(),
-                                        cfg.up_ratio, space)
-            depth_predictions.append(scale_inv_depth(inv_up)[1])
 
         return {
             "depth": depth_predictions,

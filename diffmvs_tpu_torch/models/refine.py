@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from diffmvs_tpu_torch.models.schedule import DiffusionSchedule
 from diffmvs_tpu_torch.models.stages import UpsampleMaskHead, local_cost_volume
 from diffmvs_tpu_torch.nn.unet import ConditionEncoder, DiffusionUNet
+from diffmvs_tpu_torch.utils import profiling
 
 
 def noise_like(generator: Optional[torch.Generator], x, scale: float,
@@ -134,6 +135,7 @@ class RefinementStage(RefineIteration):
         BatchNorm (its norms are GroupNorms, with no running statistics),
         so the second run neither changes the noise nor updates any
         statistic twice."""
+        profiling.count("refine.iterations")
         if self.remat and self.training and torch.is_grad_enabled():
             return checkpoint(self.iterate, *args, use_reentrant=False)
         return self.iterate(*args)

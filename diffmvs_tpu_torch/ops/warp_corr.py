@@ -45,7 +45,6 @@ gradients in the features' dtype.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -58,6 +57,7 @@ import torch
 
 from diffmvs_tpu_torch.geometry.transforms import relative_projection
 from diffmvs_tpu_torch.geometry.warp import plane_sweep_coords
+from diffmvs_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"warp_corr": CSRC / "warp_corr.cu",          # K1
@@ -68,18 +68,18 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "diffmvs_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# launch counters: `launches` counts every K1 launch, `bwd_launches` every
-# K2 launch, `pre_launches` every K3 launch, `operand_launches` and
-# `projection_launches` every launch of K3's operand and projection
-# kernels; the Counters split the same launches by (D, H, W, C) shape
-launches = 0
-launches_by_shape: collections.Counter = collections.Counter()
-bwd_launches = 0
-bwd_launches_by_shape: collections.Counter = collections.Counter()
-pre_launches = 0
-pre_launches_by_shape: collections.Counter = collections.Counter()
-operand_launches = 0
-projection_launches = 0
+# launch counters, kept in the port's registry (utils/profiling.py) and
+# credited to the span that launched: warp_corr.k1 counts every K1 launch,
+# .k2 every K2 launch, .k3 every K3 launch, .operands and .projection every
+# launch of K3's operand and projection kernels; K1, K2 and K3 also by
+# (D, H, W, C) shape. The module's old names read them (__getattr__).
+COUNTERS = {"launches": "warp_corr.k1", "bwd_launches": "warp_corr.k2",
+            "pre_launches": "warp_corr.k3",
+            "operand_launches": "warp_corr.operands",
+            "projection_launches": "warp_corr.projection"}
+BY_SHAPE = {"launches_by_shape": "warp_corr.k1",
+            "bwd_launches_by_shape": "warp_corr.k2",
+            "pre_launches_by_shape": "warp_corr.k3"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -88,16 +88,18 @@ _pre_lib = None
 
 
 def reset_counts():
-    global launches, bwd_launches, pre_launches, operand_launches
-    global projection_launches
-    launches = 0
-    bwd_launches = 0
-    pre_launches = 0
-    operand_launches = 0
-    projection_launches = 0
-    launches_by_shape.clear()
-    bwd_launches_by_shape.clear()
-    pre_launches_by_shape.clear()
+    profiling.reset_counters("warp_corr.")
+
+
+def __getattr__(name):
+    """launches, bwd_launches, ... (totals) and launches_by_shape,
+    bwd_launches_by_shape, pre_launches_by_shape (Counters), read from the
+    registry."""
+    if name in COUNTERS:
+        return profiling.counter(COUNTERS[name])
+    if name in BY_SHAPE:
+        return profiling.keyed(BY_SHAPE[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def nvcc_path() -> str:
@@ -116,14 +118,23 @@ def build() -> dict:
 
     Returns {name: path of the shared library}. The nvcc processes run
     side by side; each one's -Xptxas -v report (registers, spills) is kept
-    beside its library as <name>.log.
+    beside its library as <name>.log. Runs in a "warp_corr.build" span,
+    counting the libraries compiled (build.compiled) and found built
+    (build.found).
     """
+    with profiling.span("warp_corr.build"):
+        return _build()
+
+
+def _build() -> dict:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in (*SOURCES.values(), *HEADERS):
         digest.update(path.name.encode() + path.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
     libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
     todo = [name for name, lib in libs.items() if not lib.exists()]
+    profiling.count("build.found", len(libs) - len(todo))
+    profiling.count("build.compiled", len(todo))
     if not todo:
         return libs
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -301,7 +312,6 @@ def _check_forward(src_fea, ref_fea, rt, depth_values, groups, x_off=0):
 
 def _launch_forward(src_fea, ref_fea, rt, depth_values, groups, x_off=0):
     """K1: returns the contiguous [N, G, D, H, W] float32 buffer."""
-    global launches
     n, hs, ws, c = src_fea.shape
     _, d, h, w = depth_values.shape
     dev = src_fea.device
@@ -315,8 +325,7 @@ def _launch_forward(src_fea, ref_fea, rt, depth_values, groups, x_off=0):
             out.data_ptr(), n, d, h, w, hs, ws, c, groups, x_off, stream)
     if err != 0:
         raise RuntimeError(f"warp_corr: kernel launch failed, cudaError {err}")
-    launches += 1
-    launches_by_shape[(d, h, w, c)] += 1
+    profiling.count("warp_corr.k1", key=(d, h, w, c))
     return out
 
 
@@ -333,7 +342,6 @@ def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups,
     Returns (d_src [N, Hs, Ws, C], d_ref [N, H, W, C]) in the features'
     dtype, as autograd wants them.
     """
-    global bwd_launches
     _check_forward(src_fea, ref_fea, rt, depth_values, groups, x_off)
     if g.dtype != torch.float32:
         raise TypeError(f"warp_corr_backward: the cotangent must be "
@@ -359,8 +367,7 @@ def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups,
     if err != 0:
         raise RuntimeError(f"warp_corr_backward: kernel launch failed, "
                            f"cudaError {err}")
-    bwd_launches += 1
-    bwd_launches_by_shape[(d, h, w, c)] += 1
+    profiling.count("warp_corr.k2", key=(d, h, w, c))
     return d_src.to(src_fea.dtype), d_ref
 
 
@@ -459,7 +466,6 @@ def launch_projection(src_pair, ref_pair):
     [N, 12] float32 scalars, bit for bit, in one launch instead of
     relative_projection's chain of about a hundred small ops.
     src_pair/ref_pair [N, 2, 4, 4]."""
-    global projection_launches
     src_pair = src_pair.float().contiguous()
     ref_pair = ref_pair.float().contiguous()
     dev = _check_cuda("warp_corr_projection", (src_pair, ref_pair))
@@ -478,7 +484,7 @@ def launch_projection(src_pair, ref_pair):
     if err != 0:
         raise RuntimeError(f"warp_corr_projection: kernel launch failed, "
                            f"cudaError {err}")
-    projection_launches += 1
+    profiling.count("warp_corr.projection")
     return rt
 
 
@@ -486,7 +492,6 @@ def launch_operands(rt, depth_values, hs, ws):
     """The operand kernel (CUDA tensors only): (xi, yi, fx, fy, valid) as
     corner_operands_rt gives them, from rt [N, 12] and depth_values
     [N, D, H, W], contiguous float32, for a source image of hs x ws."""
-    global operand_launches
     dev = _check_cuda("warp_corr_operands", (depth_values, rt))
     if depth_values.dtype != torch.float32 or rt.dtype != torch.float32:
         raise TypeError("warp_corr_operands: depth_values and rt must be "
@@ -513,7 +518,7 @@ def launch_operands(rt, depth_values, hs, ws):
     if err != 0:
         raise RuntimeError(f"warp_corr_operands: kernel launch failed, "
                            f"cudaError {err}")
-    operand_launches += 1
+    profiling.count("warp_corr.operands")
     return xi, yi, fx, fy, valid
 
 
@@ -525,7 +530,6 @@ def launch_pre(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
     bfloat16 (any C/G, any alignment); xi, yi int32, fx, fy float32, valid
     bool, each contiguous [N, D, H, W], as corner_split gives them.
     """
-    global pre_launches
     operands = (xi, yi, fx, fy, valid)
     dev = _check_cuda("warp_corr_pre", (src_fea, ref_fea) + operands)
     if src_fea.dtype not in _DTYPE_CODE or ref_fea.dtype != src_fea.dtype:
@@ -560,6 +564,5 @@ def launch_pre(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
     if err != 0:
         raise RuntimeError(f"warp_corr_pre: kernel launch failed, cudaError "
                            f"{err}")
-    pre_launches += 1
-    pre_launches_by_shape[(d, h, w, c)] += 1
+    profiling.count("warp_corr.k3", key=(d, h, w, c))
     return out

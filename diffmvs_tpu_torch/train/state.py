@@ -17,6 +17,7 @@ import torch
 from diffmvs_tpu_torch.api import resolve_device, set_f32_precision
 from diffmvs_tpu_torch.models.casdiffmvs import CasDiffMVS
 from diffmvs_tpu_torch.train.schedules import make_lr_lambda
+from diffmvs_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -35,10 +36,11 @@ class TrainState:
         """Clip the gradients in .grad by their global norm, take one AdamW
         step and advance the schedule. Returns the norm before clipping
         (a device tensor: nothing waits for the host)."""
-        norm = torch.nn.utils.clip_grad_norm_(self.model.parameters(),
-                                              grad_clip)
-        self.optimizer.step()
-        self.scheduler.step()
+        with profiling.span("step.optimizer"):
+            norm = torch.nn.utils.clip_grad_norm_(self.model.parameters(),
+                                                  grad_clip)
+            self.optimizer.step()
+            self.scheduler.step()
         self.step += 1
         return norm
 

@@ -31,6 +31,13 @@ world-size scaling span both axes, so DDP's mean over the world sums the
 space ranks' gradients and averages the data ranks'; the per-image
 metrics sum their numerators and counts over the space group. eval_step
 takes a space group alone: its ranks evaluate the same rows together.
+
+Spans (utils/profiling.py): train_step is one "step", holding
+"step.upload", then per microbatch "step.forward", "step.loss" and
+"step.backward", then "step.optimizer" (the clip, AdamW and the
+schedule, in TrainState.apply_gradients). "step.backward" lends itself
+to autograd's engine: what its device thread does there (remat's
+recomputation, K2's launches) counts under it.
 """
 
 from __future__ import annotations
@@ -42,9 +49,11 @@ import contextlib
 import numpy as np
 import torch
 
+from diffmvs_tpu_torch.api import upload
 from diffmvs_tpu_torch.models.loss import compute_inverse_loss
 from diffmvs_tpu_torch.parallel import spatial
 from diffmvs_tpu_torch.parallel.distributed import space_mean
+from diffmvs_tpu_torch.utils import profiling
 from diffmvs_tpu_torch.utils.metrics import abs_depth_error
 
 
@@ -54,7 +63,7 @@ def batch_to_device(batch, device):
         return {k: batch_to_device(v, device) for k, v in batch.items()}
     if isinstance(batch, np.ndarray):
         batch = torch.from_numpy(np.ascontiguousarray(batch))
-    return batch.to(device, non_blocking=True)
+    return upload(batch, device, non_blocking=True)
 
 
 def _split(tree, parts: int, i: int):
@@ -70,14 +79,16 @@ def _split(tree, parts: int, i: int):
 def forward_loss(model, cfg, batch, generator=None, train_overrides=None,
                  denominators=None):
     """Training-branch forward + loss. Returns (loss, loss_dict, outputs)."""
-    outputs = model(batch["imgs"], batch["proj_matrices"],
-                    batch["depth_values"], depth_gt=batch["depth"],
-                    generator=generator, train=True,
-                    train_overrides=train_overrides)
-    loss, loss_dict = compute_inverse_loss(
-        outputs["depth"], outputs["conf"], batch["depth"], batch["mask"],
-        batch["depth_values"], cfg.model.stage_iters, cfg.loss_rate,
-        cfg.conf_weight, denominators)
+    with profiling.span("step.forward"):
+        outputs = model(batch["imgs"], batch["proj_matrices"],
+                        batch["depth_values"], depth_gt=batch["depth"],
+                        generator=generator, train=True,
+                        train_overrides=train_overrides)
+    with profiling.span("step.loss"):
+        loss, loss_dict = compute_inverse_loss(
+            outputs["depth"], outputs["conf"], batch["depth"], batch["mask"],
+            batch["depth_values"], cfg.model.stage_iters, cfg.loss_rate,
+            cfg.conf_weight, denominators)
     return loss, loss_dict, outputs
 
 
@@ -136,7 +147,8 @@ def compute_gradients(model, cfg, batch,
         with contextlib.nullcontext() if sync else model.no_sync():
             loss, loss_dict, outputs = forward_loss(model, cfg, mb,
                                                     generator, ov, dens)
-            (loss / accum).backward()
+            with profiling.span("step.backward", lend=True):
+                (loss / accum).backward()
         loss_sum = loss_sum + loss.detach()
         for k, v in loss_dict.items():
             dict_sum[k] = dict_sum.get(k, 0.0) + v
@@ -175,47 +187,49 @@ def train_step(state, cfg, batch,
     gradient norm before clipping ("grad_norm") to the reference's set;
     under dp they are the means over the ranks, images this rank's.
     """
-    batch = batch_to_device(batch, state.device)
-    model = state.model
-    reduce = None
-    if dp is not None and dp.mode == "shard":
-        model = dp.module
-        if train_overrides is not None:
-            train_overrides = _split(train_overrides, dp.data_size,
-                                     dp.data_rank)
-    elif dp is not None:
-        model = dp.module
-        b, _, h, w = batch["imgs"].shape[:4]
-        shard = (None if dp.space is None
-                 else dp.space.shard(w, state.device))
-        if shard is not None:
-            w, reduce = shard.width, _space_sum(dp.space)
-        if train_overrides is None:
-            train_overrides = state.model.draw_train_overrides(
-                b * dp.data_size, h, w, generator)
-        train_overrides = _local_overrides(
-            train_overrides, (dp.data_rank, dp.data_size), shard)
-    loss, loss_dict, outputs, mb = compute_gradients(
-        model, cfg, batch, generator, train_overrides, dp)
-    if dp is not None and dp.mode == "shard":
-        dp.average_statistics()
-    grad_norm = state.apply_gradients(cfg.grad_clip)
-    with torch.no_grad():
-        scalars = _scalars(loss, loss_dict, outputs, mb, reduce)
-        scalars["grad_norm"] = grad_norm
-        if dp is not None:
-            scalars = dp.mean(scalars)
-        depth_est = outputs["depth"][-1].detach()
-        gt, mask = mb["depth"]["stage4"], mb["mask"]["stage4"]
-        images = {
-            "depth_est": depth_est * mask,
-            "depth_est_nomask": depth_est,
-            "depth_gt": gt,
-            "errormap": (depth_est - gt).abs() * mask,
-        }
-        if outputs["conf"]:
-            images["confidence"] = outputs["conf"][-1].detach()
-    return scalars, images
+    with profiling.span("step"):
+        with profiling.span("step.upload"):
+            batch = batch_to_device(batch, state.device)
+        model = state.model
+        reduce = None
+        if dp is not None and dp.mode == "shard":
+            model = dp.module
+            if train_overrides is not None:
+                train_overrides = _split(train_overrides, dp.data_size,
+                                         dp.data_rank)
+        elif dp is not None:
+            model = dp.module
+            b, _, h, w = batch["imgs"].shape[:4]
+            shard = (None if dp.space is None
+                     else dp.space.shard(w, state.device))
+            if shard is not None:
+                w, reduce = shard.width, _space_sum(dp.space)
+            if train_overrides is None:
+                train_overrides = state.model.draw_train_overrides(
+                    b * dp.data_size, h, w, generator)
+            train_overrides = _local_overrides(
+                train_overrides, (dp.data_rank, dp.data_size), shard)
+        loss, loss_dict, outputs, mb = compute_gradients(
+            model, cfg, batch, generator, train_overrides, dp)
+        if dp is not None and dp.mode == "shard":
+            dp.average_statistics()
+        grad_norm = state.apply_gradients(cfg.grad_clip)
+        with torch.no_grad():
+            scalars = _scalars(loss, loss_dict, outputs, mb, reduce)
+            scalars["grad_norm"] = grad_norm
+            if dp is not None:
+                scalars = dp.mean(scalars)
+            depth_est = outputs["depth"][-1].detach()
+            gt, mask = mb["depth"]["stage4"], mb["mask"]["stage4"]
+            images = {
+                "depth_est": depth_est * mask,
+                "depth_est_nomask": depth_est,
+                "depth_gt": gt,
+                "errormap": (depth_est - gt).abs() * mask,
+            }
+            if outputs["conf"]:
+                images["confidence"] = outputs["conf"][-1].detach()
+        return scalars, images
 
 
 def eval_step(state, cfg, batch,

@@ -258,17 +258,18 @@ def test_cli_device_flag(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_profiling_hooks_on_the_cpu(tmp_path):
-    lines = []
-    with profiling.wallclock("matmul", sink=lines.append) as holder:
-        with profiling.trace("matmul"):
-            holder["result"] = {"y": torch.ones(8, 8) @ torch.ones(8, 8)}
-    assert holder["elapsed"] > 0.0
-    assert lines == [f"matmul: {holder['elapsed'] * 1000:.2f} ms"]
-
-    def fn(a):
-        with profiling.trace("double"):
-            return a * 2
-    out = profiling.capture(str(tmp_path / "trace"), fn, torch.ones(3))
+    """A span is always timed; under torch.profiler it is also a
+    diffmvs.* range of the trace."""
+    with profiling.span("matmul") as sp:
+        y = torch.ones(8, 8) @ torch.ones(8, 8)
+    assert sp.seconds > 0.0 and not sp.unit.profiled
+    assert torch.equal(y, torch.full((8, 8), 8.0))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.span("double") as sp:
+            out = torch.ones(3) * 2
     assert torch.equal(out, torch.full((3,), 2.0))
-    with open(tmp_path / "trace" / "trace.json") as f:
-        assert "double" in f.read()
+    assert sp.unit.profiled and sp.seconds > 0.0
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        assert "diffmvs.double" in f.read()
