@@ -29,6 +29,16 @@ Phases (one line each; any failure exits non-zero):
                      entry's batch, N = 16 at the sweep / stage-2 /
                      stage-3 shapes, each sample with its own view pair,
                      features and depths, f32 and bf16
+  4b. pvw_kernel  -- PixelViewWeight's fused kernel (ops/view_weight.py)
+                     against the module's cuDNN chain, view by view, at the
+                     sweep's shape (4 views, D = 48, 144x200, G = 4) for
+                     B = 16 and B = 1, bf16 and f32 volumes: max abs error
+                     <= 1e-5, times (ms, card_ms, cold_ms), the FFMA bound,
+                     the chain's ms (plain_ms and library_ms: the module is
+                     both the kernel's plain version and the library it
+                     replaces at inference); then
+                     ragged shapes that cut every tile edge, one plane, and
+                     G = 8
   5. train_kernel -- K2 against autograd of the plain version at the
                      training shapes (B=4 at 512x640: the sweep and the two
                      refinement stages) with degenerate depths, f32 and
@@ -45,8 +55,9 @@ Phases (one line each; any failure exits non-zero):
   7. main         -- CasDiffMVS export inference at DTU size (1152x1600, 5
                      views, 48/384 hypotheses, f32, random weights from
                      seed 0): 3 requests through DepthRunner; 28 K1
-                     launches each; the first request again with the plain
-                     warp in place of the kernel must agree
+                     launches and one PixelViewWeight kernel launch each;
+                     the first request again with the plain warp in place
+                     of the kernel must agree
   8. main_bf16    -- the same in bf16 compute, beside main's maps/s and
                      peak memory
   9. main_b16     -- one forward of the bench entry's main cell (bf16, B =
@@ -160,8 +171,9 @@ Phases (one line each; any failure exits non-zero):
 Then a JSON line of per-kernel numbers (K1's launches from main and
 main_bf16, K2's from train and train_bf16, at the shards' shapes both
 from sp's rank 0, K3's, the operand and the projection kernel's from the
-k3_kernel entry calls), the nvidia-smi line, and last {"ok": true,
-"device": {...}}.
+k3_kernel entry calls, PixelViewWeight's from main, main_bf16 and
+main_b16, null for its float32 volume at B = 16, which no phase runs),
+the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Imports torch and the port only; nothing of JAX.
 """
@@ -183,6 +195,13 @@ from diffmvs_tpu_torch.tools.kernel_times import (
     pre_bound, sample_counts, timings, warp_bound)
 
 CORR_TOL = dict(rtol=1e-4, atol=1e-5)
+# PixelViewWeight's kernel against the module's chain: float32 sums of 27 G
+# and 216 terms in another order, ~1e-6 on the [0, 1] weights
+PVW_TOL = 1e-5
+# (V-1, B, D, H, W, G) of the kernel's odd cases: ragged tiles (output
+# tiles of 18 x 30), one plane, G = 8
+PVW_ODD = ((2, 2, 5, 7, 13, 4), (2, 1, 5, 19, 37, 4), (1, 1, 1, 9, 31, 4),
+           (2, 1, 6, 19, 37, 8))
 # K2's bf16 gradients against the plain version's: both are the bf16
 # roundings of float32 sums taken in other orders, so they differ by at
 # most one bf16 ulp (2^-8 to 2^-7 relative) where a sum lies near a
@@ -379,6 +398,43 @@ def phase_kernel(run):
             errs.append(f"{tag}={(got - want).abs().max().item():.1e}")
     log("kernel", shape="batched_odd", N=n, D=d, hw=f"{h}x{w}",
         src_hw=f"{h + 3}x{w - 2}", max_abs_err=",".join(errs))
+
+
+def phase_pvw_kernel(run):
+    """PixelViewWeight's kernel against the module's chain at the sweep's
+    shape (kernel_times.time_pvw) and at odd shapes."""
+    from diffmvs_tpu_torch.ops import view_weight
+    from diffmvs_tpu_torch.tools.kernel_times import (
+        pvw_library, pvw_module, pvw_views, time_pvw)
+
+    dev, gen = run["dev"], run["gen"]
+    res = {"pvw": {}}
+    time_pvw(res, dev, gen)
+    for key, r in res["pvw"].items():
+        check(r["route"] == "kernel" and r["max_abs_err"] <= PVW_TOL,
+              f"pvw {key}: {r}")
+        log("pvw_kernel", shape=key, max_abs_err=f"{r['max_abs_err']:.3e}",
+            ms=f"{r['ms']:.4f}", card_ms=f"{r['card_ms']:.4f}",
+            cold_ms=f"{r['cold_ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+            library_ms=f"{r['library_ms']:.4f}",
+            bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"])
+    run["pvw_rows"] = res["pvw"]
+    errs = []
+    for v, b, d, h, w, g in PVW_ODD:
+        m = pvw_module(g, dev, seed=1)
+        x32 = torch.randn((v, b, d, h, w, g), device=dev, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            with torch.inference_mode():
+                got = view_weight.view_weights(x, *view_weight.weights(m))
+                want = pvw_library(m, pvw_views(x))
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tag = (f"{'f32' if dt == torch.float32 else 'bf16'}:"
+                   f"{v}x{b}x{d}x{h}x{w}xG{g}")
+            check(err <= PVW_TOL, f"pvw {tag}: max abs err {err}")
+            errs.append(f"{tag}={err:.1e}")
+    log("pvw_kernel", shape="odd", max_abs_err=",".join(errs))
 
 
 def shard_inputs(name, stage, d, s, n, hh, ww, projs, views, dev, gen):
@@ -631,8 +687,9 @@ def serve(run, phase, compute_dtype, gate):
     warp: mean relative depth difference below `gate`. Returns maps/s and
     the peak memory (GiB)."""
     from diffmvs_tpu_torch.api import DepthRunner
-    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.ops import view_weight, warp_corr
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
+    from diffmvs_tpu_torch.utils import profiling
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
     hh, ww, views = 1152, 1600, 5
@@ -645,8 +702,10 @@ def serve(run, phase, compute_dtype, gate):
     torch.cuda.reset_peak_memory_stats()
     warp_corr.reset_counts()
     results, req_ms = [], []
+    pvw0 = profiling.counter(view_weight.COUNTER)
     for imgs, pr, dv in requests:
         before = warp_corr.launches
+        pvw = profiling.counter(view_weight.COUNTER)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         depth, confs = runner(imgs, pr, dv)
@@ -655,7 +714,10 @@ def serve(run, phase, compute_dtype, gate):
         results.append((depth, confs))
         check(warp_corr.launches - before == 28,
               f"{warp_corr.launches - before} launches in one request")
+        check(profiling.counter(view_weight.COUNTER) - pvw == 1,
+              "one PixelViewWeight kernel launch a request")
     launches = warp_corr.launches
+    pvw_launches = profiling.counter(view_weight.COUNTER) - pvw0
     by_shape = dict(warp_corr.launches_by_shape)
     check(warp_corr.bwd_launches == warp_corr.pre_launches
           == warp_corr.operand_launches == warp_corr.projection_launches
@@ -689,10 +751,12 @@ def serve(run, phase, compute_dtype, gate):
         maps_per_s=f"{figures['maps_per_s']:.3f}",
         peak_mem_gib=f"{figures['peak_gib']:.3f}",
         launches=launches, launches_per_request=launches // len(requests),
+        pvw_launches=pvw_launches,
         plain_vs_kernel_mean_rel=f"{rel.mean().item():.3e}",
         plain_vs_kernel_max_rel=f"{rel.max().item():.3e}",
         gate_mean_rel=f"{gate:.0e}")
     check(rel.mean().item() < gate, f"plain vs kernel {rel.mean().item()}")
+    figures["pvw_launches"] = pvw_launches
     return by_shape, figures
 
 
@@ -709,6 +773,7 @@ def phase_main_bf16(run):
     diffusion: the mean relative depth difference measured 1.2e-2 on an
     H100 (against 1.1e-6 in f32), so the gate is 5e-2."""
     run["k1_launches_bf16"], fig = serve(run, "main_bf16", "bfloat16", 5e-2)
+    run["main_bf16"] = fig
     f32 = run["main_f32"]
     log("main_bf16", maps_per_s_bf16=f"{fig['maps_per_s']:.3f}",
         maps_per_s_f32=f"{f32['maps_per_s']:.3f}",
@@ -727,8 +792,10 @@ def phase_main_b16(run):
 
     from diffmvs_tpu_torch.api import DepthRunner
     from diffmvs_tpu_torch.bench import infer_config
+    from diffmvs_tpu_torch.ops import view_weight
     from diffmvs_tpu_torch.ops.correlation import (warp_and_correlate,
                                                    warp_and_correlate_plain)
+    from diffmvs_tpu_torch.utils import profiling
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
     dev = run["dev"]
@@ -757,10 +824,14 @@ def phase_main_b16(run):
         p[:, 1:, 0, :3, 3] *= (1.0 + np.arange(n) / n).reshape(n, 1, 1)
     runner = DepthRunner(cfg, device=dev, seed=0, warp=checked)
     t0 = time.time()
+    pvw = profiling.counter(view_weight.COUNTER)
     depth, confs = runner(imgs, projs, dv)
     torch.cuda.synchronize()
+    run["pvw_launches_b16"] = profiling.counter(view_weight.COUNTER) - pvw
     check(len(calls) == 28 and all(b == n for b, _ in calls),
           f"{len(calls)} warps, batches {sorted({b for b, _ in calls})}")
+    check(run["pvw_launches_b16"] == 1,
+          f"{run['pvw_launches_b16']} PixelViewWeight launches a forward")
     check(depth.shape == (n, shape.h, shape.w)
           and bool(torch.isfinite(depth).all()), f"depth {depth.shape}")
     log("main_b16", batch=n, warps=len(calls),
@@ -2643,7 +2714,8 @@ def main():
            "k2_rows_bf16": {}, "k1_rows_sp": {}, "k1_rows_sp_bf16": {},
            "k2_rows_sp": {}, "k2_rows_sp_bf16": {}, "k3_rows": [],
            "operand_rows": []}
-    for phase in (phase_jax_ckpt, phase_kernel, phase_train_kernel,
+    for phase in (phase_jax_ckpt, phase_kernel, phase_pvw_kernel,
+                  phase_train_kernel,
                   phase_small, phase_main,
                   phase_main_bf16, phase_main_b16, phase_train_small,
                   phase_train, phase_train_bf16, phase_k3_kernel, phase_export,
@@ -2720,7 +2792,26 @@ def main():
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None})
-    check(len(kernels) == 31, f"{len(kernels)} kernel rows")
+    # PixelViewWeight's kernel replaces no TPU kernel: the JAX package
+    # leaves the module to XLA's convolutions (cuDNN's in the port before).
+    # Launches as counted in main, main_bf16 and main_b16; no phase runs a
+    # float32 forward at B = 16, so that row is timed and counts none (null)
+    pvw_launches = {"b1:f32": run["main_f32"]["pvw_launches"],
+                    "b1:bf16": run["main_bf16"]["pvw_launches"],
+                    "b16:bf16": run["pvw_launches_b16"]}
+    for key, r in run["pvw_rows"].items():
+        kernels.append({
+            "name": f"pixel_view_weight:{key}", "route": "cuda",
+            "source": "diffmvs_tpu_torch/ops/csrc/pixel_view_weight.cu",
+            "replaces": "diffmvs_tpu/nn/costreg.py PixelViewWeight (XLA)",
+            "note": "the port's own kernel, not a TPU kernel: the conv "
+                    "stack, BatchNorm, ReLU, sigmoid and max over D",
+            "launches": pvw_launches.get(key),
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "card_ms": r["card_ms"], "cold_ms": r["cold_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    check(len(kernels) == 35, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,8 +40,10 @@ SCHEDULE_BUFFERS = (
 def set_f32_precision():
     """Full float32 matmuls and convolutions on CUDA (no TF32), matching
     the JAX package's `highest` precision. Set for either compute dtype:
-    under bfloat16 the float32 convs that remain (PixelViewWeight's) would
-    otherwise run in TF32, which cuDNN allows by default."""
+    under bfloat16 the float32 convs that remain (PixelViewWeight's, in
+    training and on width shards; at inference its hand-written kernel
+    computes them in float32 whatever this sets) would otherwise run in
+    TF32, which cuDNN allows by default."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

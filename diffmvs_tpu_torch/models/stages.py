@@ -79,18 +79,15 @@ class InitialStage(nn.Module):
         """
         mask_logits = self.mask(context)
         ref_fea = features[0]
-        cor_list, weight_list = [], []
-        for i, src_fea in enumerate(features[1:]):
-            cor = (self.warp or warp_and_correlate)(
+        cor_list = [
+            (self.warp or warp_and_correlate)(
                 src_fea, ref_fea, proj_pairs[:, i + 1], proj_pairs[:, 0],
                 depth_values, self.group_dim, x_off
             ).to(ref_fea.dtype)                            # [B,D,H,W,G]
-            weight_list.append(self.pixel_view_weight(
-                cor.permute(0, 4, 1, 2, 3)))               # [B,H,W]
-            cor_list.append(cor)
-
-        view_weights = torch.stack(weight_list)            # [V-1,B,H,W]
-        agg = aggregate_views(torch.stack(cor_list), view_weights)
+            for i, src_fea in enumerate(features[1:])]
+        cor_feats = torch.stack(cor_list)                  # [V-1,B,D,H,W,G]
+        view_weights = self.pixel_view_weight.views(cor_feats)  # [V-1,B,H,W]
+        agg = aggregate_views(cor_feats, view_weights)
         prob_logits = self.cost_regularization(agg.permute(0, 4, 1, 2, 3))
         normalized, confidence = depth_regression_with_confidence(
             prob_logits.float())

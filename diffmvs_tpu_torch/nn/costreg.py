@@ -6,7 +6,9 @@ plain branches). Volumes are [B, G, D, H, W].
 CostRegNet computes in `dtype`. PixelViewWeight always computes in
 float32, whatever the model's dtype: the JAX module passes its convs no
 dtype (nn/costreg.py, PixelViewWeight), so flax promotes them to the
-float32 of their parameters.
+float32 of their parameters. PixelViewWeight.views weighs all source views
+at once: at inference on the card in one hand-written kernel
+(ops/view_weight.py), elsewhere with the module, view by view.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from diffmvs_tpu_torch.nn.layers import Conv3d, Conv3dBnAct, Deconv3dBnAct
+from diffmvs_tpu_torch.ops import view_weight
 
 
 class CostRegNet(nn.Module):
@@ -57,3 +60,43 @@ class PixelViewWeight(nn.Module):
         float32."""
         x = torch.sigmoid(self.conv(cor_feat)[:, 0])       # [B, D, H, W]
         return x.amax(dim=1)
+
+    def views(self, cor_feats):
+        """The weights of all V-1 source views: [V-1, B, H, W] float32.
+
+        cor_feats: their correlation volumes stacked, [V-1, B, D, H, W, G]
+        contiguous. On a CUDA volume where fusable(cor_feats), one launch
+        of the kernel; otherwise this module view by view: in training
+        (BatchNorm's batch statistics between the two convs, and a
+        backward), on a width shard (the convs' halo exchange) and on the
+        CPU. The module gets each view in the layout the warp gave it, so
+        that its convolutions and BatchNorm's batch statistics round as
+        they did on the unstacked volumes: on the card a contiguous float32
+        [B, G, D, H, W] copy, what its first conv made of the warp kernel's
+        buffers (cuDNN takes its NCDHW convolutions for that, its
+        channels-last ones for a strided view), on the CPU the plain
+        warp's [B, D, H, W, G] order.
+        """
+        if cor_feats.is_cuda and self.fusable(cor_feats):
+            return view_weight.view_weights(cor_feats,
+                                            *view_weight.weights(self))
+        per_view = [c.permute(0, 4, 1, 2, 3) for c in cor_feats.unbind(0)]
+        if cor_feats.is_cuda:
+            per_view = [c.to(torch.float32,
+                             memory_format=torch.contiguous_format)
+                        for c in per_view]
+        return torch.stack([self(c) for c in per_view])
+
+    def fusable(self, cor_feats) -> bool:
+        """The kernel's conditions besides a CUDA volume: eval mode with
+        running statistics (the kernel applies BatchNorm from them),
+        autograd recording nothing, and the plain Conv3d (not a width
+        shard's SpaceConv3d)."""
+        block, conv2 = self.conv
+        records = torch.is_grad_enabled() and (
+            cor_feats.requires_grad
+            or any(p.requires_grad for p in self.parameters()))
+        return (not any(m.training for m in self.modules()) and not records
+                and type(block.conv) is Conv3d and type(conv2) is Conv3d
+                and block.bn.running_mean is not None
+                and block.bn.running_var is not None)

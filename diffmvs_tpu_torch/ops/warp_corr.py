@@ -62,7 +62,9 @@ from diffmvs_tpu_torch.utils import profiling
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"warp_corr": CSRC / "warp_corr.cu",          # K1
            "warp_corr_bwd": CSRC / "warp_corr_bwd.cu",  # K2
-           "warp_corr_pre": CSRC / "warp_corr_pre.cu"}  # K3
+           "warp_corr_pre": CSRC / "warp_corr_pre.cu",  # K3
+           # PixelViewWeight's conv stack (ops/view_weight.py)
+           "pixel_view_weight": CSRC / "pixel_view_weight.cu"}
 HEADERS = (CSRC / "warp_geom.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "diffmvs_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -161,7 +163,8 @@ def _build() -> dict:
 
 
 def _load():
-    """(K1, K2) libraries; K3's comes from _load_pre(). Builds all three."""
+    """(K1, K2) libraries; K3's comes from _load_pre(). Builds every
+    source of SOURCES."""
     global _lib, _bwd_lib
     if _lib is None:
         libs = build()

@@ -1,7 +1,9 @@
 """K1 and K2 on the card at the main path's and the training cell's
 shapes, K3 (with its operands and its entry, warp_corr(...,
-batch_rows=False)) at the three DTU shapes: CUDA-event times with L2 warm
-and with L2 flushed, beside each kernel's bound.
+batch_rows=False)) at the three DTU shapes, and PixelViewWeight's fused
+kernel (ops/view_weight.py) at the sweep's shape for B = 16 and B = 1:
+CUDA-event times with L2 warm and with L2 flushed, beside each kernel's
+bound.
 
     python3 diffmvs_tpu_torch/tools/kernel_times.py [--root DIR] [--dtype bf16]
 
@@ -16,8 +18,12 @@ line: the kernel module timed, the card (`nvidia-smi` name and power
 limit) and, per kernel and shape, the median ms warm (with and without
 the host's launch gap) and L2-cold, and the bound. K3's operands are timed
 through the tree's operand kernel, or, in a tree that has none, through
-its plain corner_operands (the route is named). Needs CUDA; fails without
-it.
+its plain corner_operands (the route is named). PixelViewWeight's four
+views are timed through the kernel, beside the module's cuDNN chain view
+by view, which is both its plain version (the port's path in training, on
+width shards and on the CPU) and the library it replaces at inference:
+`plain_ms` and `library_ms` are that one timing. Needs CUDA; fails
+without it.
 
 chip_smoke.py takes its timing, bounds and inputs from here too.
 """
@@ -188,6 +194,80 @@ def k2_global_atomics(sp, rp, depth, hs, ws, c, x_off=0):
     return starts * (c // 4), corners * c
 
 
+def pvw_bound(n, d, h, w, g, in_bytes):
+    """PixelViewWeight's n volumes [d, h, w, g]: each read once (in_bytes a
+    value), the [n, h, w] float32 weights written once, against the two
+    convolutions' 2 * 27 * (8 g + 8) operations a voxel (2160 at g = 4;
+    BatchNorm, ReLU and the max are ~20 more, not counted)."""
+    voxels = n * d * h * w
+    return bound(voxels * g * in_bytes + n * h * w * 4,
+                 voxels * 2 * 27 * (8 * g + 8))
+
+
+# PixelViewWeight at the sweep's shape: 4 source views, D = 48, 144x200
+# (1152x1600 at 1/8), G = 4; batch sizes timed
+PVW_SHAPE = (4, 48, 144, 200, 4)
+PVW_BATCHES = (16, 1)
+
+
+def pvw_module(g, dev, seed=0):
+    """An eval-mode PixelViewWeight of the tree imported, with BatchNorm
+    statistics and affine terms away from their initial values."""
+    from diffmvs_tpu_torch.nn.costreg import PixelViewWeight
+    torch.manual_seed(seed)
+    m = PixelViewWeight(g)
+    bn = m.conv[0].bn
+    with torch.no_grad():
+        bn.running_mean.uniform_(-0.5, 0.5)
+        bn.running_var.uniform_(0.5, 2.0)
+        bn.weight.uniform_(0.5, 1.5)
+        bn.bias.uniform_(-0.3, 0.3)
+    return m.eval().to(dev)
+
+
+def pvw_views(cor_feats):
+    """The V-1 volumes of cor_feats [V-1, B, D, H, W, G] one by one as the
+    warp gives them: [B, D, H, W, G] views of [B, G, D, H, W] buffers."""
+    return [c.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+            for c in cor_feats]
+
+
+def pvw_library(m, cor_list):
+    """The module's cuDNN chain over the volumes of pvw_views, view by
+    view, as InitialStage ran it before the kernel: [V-1, B, H, W]."""
+    return torch.stack([m(c.permute(0, 4, 1, 2, 3)) for c in cor_list])
+
+
+def time_pvw(res, dev, gen):
+    """PixelViewWeight's four views at PVW_SHAPE for each of PVW_BATCHES,
+    bf16 and f32 volumes, into res["pvw"]: the kernel's timings, its max
+    abs error against the module's chain, the chain's ms, the bound."""
+    from diffmvs_tpu_torch.ops import view_weight
+    v, d, h, w, g = PVW_SHAPE
+    m = pvw_module(g, dev)
+    params = view_weight.weights(m)
+    for b in PVW_BATCHES:
+        x32 = torch.randn((v, b, d, h, w, g), device=dev, generator=gen)
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x = x32.to(dt)
+            cor_list = pvw_views(x)
+            bound_ms, bound_by = pvw_bound(v * b, d, h, w, g,
+                                           x.element_size())
+            with torch.inference_mode():
+                library = timings(lambda: pvw_library(m, cor_list))
+                got = view_weight.view_weights(x, *params)
+                want = pvw_library(m, cor_list)
+                res["pvw"][f"b{b}:{tag}"] = dict(
+                    route="kernel",
+                    **timings(lambda: view_weight.view_weights(x, *params)),
+                    plain_ms=library["card_ms"],
+                    library_ms=library["card_ms"],
+                    library_cold_ms=library["cold_ms"],
+                    max_abs_err=(got - want).abs().max().item(),
+                    bound_ms=bound_ms, bound_by=bound_by)
+        del x32, x, cor_list
+
+
 def make_depth(name, n, d, h, w, dev, gen, smooth=False):
     """Sweep planes 4..10 m, or refinement hypotheses 0.05 m apart around
     a depth of 4..10 m drawn per pixel, or with smooth=True, a depth map
@@ -283,6 +363,7 @@ def main(argv=None):
     sys.path.insert(0, str(Path(args.root).resolve()))
     from diffmvs_tpu_torch.ops import warp_corr
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False   # the port's float32 convs
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -291,7 +372,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"module": warp_corr.__file__, "smi": smi, "k2_dtype": args.dtype,
-           "k1": {}, "k2": {}, "k3": {}, "k3_operands": {}}
+           "k1": {}, "k2": {}, "k3": {}, "k3_operands": {}, "pvw": {}}
     # the refinement shapes also with smooth depth maps (make_depth)
     cases = [(name, False) for name in INFER_SHAPES] + [
         (name, True) for name in INFER_SHAPES if name != "sweep"]
@@ -327,6 +408,7 @@ def main(argv=None):
         res["k2"][name + (":smooth" if smooth else "")] = dict(
             **times, bound_ms=b)
     time_k3(warp_corr, res, dev, gen)
+    time_pvw(res, dev, gen)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -48,6 +48,7 @@ GROUPS = (
     ("sweepsamples", "warp_corr (K1, hand-written)"),
     ("cornersamples", "warp_corr_pre (K3, hand-written)"),
     ("warp_corr", "warp_corr (K1, hand-written)"),
+    ("pvw_conv3d", "PixelViewWeight (hand-written)"),
     ("multi_tensor", "optimizer"),
     ("bn_bw", "normalization"),
     ("memcpy", "host-to-device copy"),

@@ -221,7 +221,9 @@ def test_kernel_module_imports_without_nvcc():
 def test_build_key_covers_every_include(name):
     """build() keys its cache on SOURCES and HEADERS: every file under
     ops/csrc/ is one of them, and every local header a file includes is
-    in HEADERS, so an edit to it rebuilds the kernels."""
+    in HEADERS, so an edit to it rebuilds the kernels. The warp kernels'
+    sources (K1, K2, K3) include the coordinate code they share;
+    PixelViewWeight's kernel shares none."""
     path = warp_corr.CSRC / name
     keyed = {p.name for p in (*warp_corr.SOURCES.values(),
                               *warp_corr.HEADERS)}
@@ -230,8 +232,8 @@ def test_build_key_covers_every_include(name):
                 if line.strip().startswith("#include \"")]
     headers = {p.name for p in warp_corr.HEADERS}
     assert all(inc in headers for inc in includes), (name, includes)
-    if path.suffix == ".cu":
-        assert includes, f"{name} includes no shared header"
+    if path.suffix == ".cu" and name.startswith("warp_corr"):
+        assert "warp_geom.cuh" in includes, f"{name} includes no shared header"
 
 
 @pytest.mark.parametrize("case", ["refine", "sweep"])
