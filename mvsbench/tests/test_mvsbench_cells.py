@@ -12,6 +12,8 @@ import torch
 
 from mvsbench import calibrate, check, manifest, run
 from mvsbench.tests import toy
+from mvsbench.tests.test_mvsbench_counts import (check_flops_per_map,
+                                                 count_flops)
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 99
@@ -84,30 +86,68 @@ def test_control_is_not_correct(bench, name):
     assert not ok, compared
 
 
-def test_new_config_and_cell_need_no_edit(tmp_path):
-    """A configuration file, a traffic file, a limits file and a cell
-    entry: nothing else changes."""
+NEW_CELLS = [
+    pytest.param(dict(
+        base="diffmvs-dtu", model={"numdepth_initial": 16}, shape={},
+        mix=("pool3", dict(toy.TOY_TRAFFIC["request1"], pool=3)),
+        like="toy-casdiffmvs-dtu.request1",
+        end_to_end={"request_p90_ms", "peak_gib", "setup_s"},
+        traces=[False]), id="request"),
+    # the shape a published configuration other than DTU's brings, as
+    # Tanks and Temples' (1056 / 32 = 33 is odd, 10 views, 96 coarse
+    # planes, the BlendedMVS noise scales), at toy size, on a mix the
+    # benchmark already has
+    pytest.param(dict(
+        base="casdiffmvs-dtu",
+        model={"numdepth_initial": 16, "scale": [0.0, 0.125, 0.025]},
+        shape={"image_hw": [96, 160], "views": 4}, mix=("batch2", None),
+        like="toy-casdiffmvs-dtu.batch2",
+        end_to_end={"maps_per_s", "peak_gib", "setup_s"},
+        traces=[False, True]), id="batch"),
+]
+
+
+@pytest.mark.parametrize("new", NEW_CELLS)
+def test_new_config_and_cell_need_no_edit(tmp_path, new):
+    """A configuration file, a traffic file where the mix is new, a
+    limits file and a cell entry whose name is appended to the workloads
+    lists of the metrics it reports: nothing else changes."""
     doc = toy.write(tmp_path, KIND_LIMITS)
-    cfg = toy.toy_config("diffmvs-dtu")
+    cfg = toy.toy_config(new["base"])
     cfg["name"] = "toy-new"
-    cfg["model"]["numdepth_initial"] = 16
+    cfg["model"].update(new["model"])
+    cfg.update(new["shape"])
+    if new["shape"]:
+        # what a real configuration of this shape is held to
+        cfg["flops_per_map"] = count_flops(cfg, *cfg["image_hw"])
+        check_flops_per_map(cfg)
     (tmp_path / "configs" / "toy-new.json").write_text(json.dumps(cfg))
-    mix = dict(toy.TOY_TRAFFIC["request1"], pool=3)
-    (tmp_path / "traffic" / "pool3.json").write_text(json.dumps(mix))
-    (tmp_path / "limits" / "toy-new.pool3.json").write_text(
-        json.dumps(KIND_LIMITS["request"]))
-    doc["workloads"].append({"name": "toy-new.pool3", "config": "toy-new",
-                             "traffic": "pool3", "chips": 1, "why": "new"})
+    mix, traffic = new["mix"]
+    if traffic is not None:
+        (tmp_path / "traffic" / f"{mix}.json").write_text(json.dumps(traffic))
+    name = f"toy-new.{mix}"
+    kind = manifest.read_json(tmp_path / "traffic" / f"{mix}.json")["kind"]
+    (tmp_path / "limits" / f"{name}.json").write_text(
+        json.dumps(KIND_LIMITS[kind]))
+    doc["workloads"].append({"name": name, "config": "toy-new",
+                             "traffic": mix, "chips": 1, "why": "new"})
     for m in doc["end_to_end"] + doc["per_layer"]:
-        if "toy-casdiffmvs-dtu.request1" in m.get("workloads", []):
-            m["workloads"].append("toy-new.pool3")
-    cell = toy.cell(tmp_path, doc, "toy-new.pool3")
-    assert cell.config["model"]["numdepth_initial"] == 16
-    assert {m["name"] for m in cell.end_to_end} == {
-        "request_p90_ms", "peak_gib", "setup_s"}
-    res = run.measure(cell, SEED, 0.3, False, CPU)
-    assert res["correct"] is True
-    assert "request_p90_ms" in res["metrics"]
+        if new["like"] in m.get("workloads", []):
+            m["workloads"].append(name)
+    cell = toy.cell(tmp_path, doc, name)
+    assert cell.config["model"] == dict(toy.toy_config(new["base"])["model"],
+                                        **new["model"])
+    assert {m["name"] for m in cell.end_to_end} == new["end_to_end"]
+    assert {m["name"] for m in cell.per_layer} == {
+        m["name"] for m in toy.cell(tmp_path, doc, new["like"]).per_layer}
+    for trace in new["traces"]:
+        res = run.measure(cell, SEED, 0.3, trace, CPU)
+        assert res["correct"] is True, res["compared"]
+        if trace:
+            assert res["metrics"]
+            assert set(res["metrics"]) <= {m["name"] for m in cell.per_layer}
+        else:
+            assert set(res["metrics"]) == new["end_to_end"]
 
 
 @pytest.mark.chip

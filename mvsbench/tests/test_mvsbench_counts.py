@@ -1,6 +1,7 @@
 """The yardstick's counts: each configuration's FLOPs a map recounted at
-a small size, the bound arithmetic by hand, and K2's bound being the
-bytes' at the training shapes."""
+its own image size, the bound arithmetic by hand, K2's bound being the
+bytes' at the training shapes, and the warp calls at the DTU shapes and
+at another view and plane count."""
 
 import json
 
@@ -31,13 +32,22 @@ def count_flops(config, h, w):
     return fc.get_total_flops()
 
 
+def check_flops_per_map(config):
+    """What a configuration file is held to, at any published size: its
+    image_hw a pair of positive multiples of 32 (the model's stride), at
+    least 2 views, and its flops_per_map the count at its own image_hw
+    (`counts.flops_per_map` scales from there)."""
+    hw = config["image_hw"]
+    assert len(hw) == 2 and all(
+        isinstance(x, int) and x > 0 and x % 32 == 0 for x in hw), hw
+    assert config["views"] >= 2
+    assert count_flops(config, *hw) == pytest.approx(
+        config["flops_per_map"], rel=1e-6)
+
+
 @pytest.mark.parametrize("c", DOC["configs"], ids=lambda c: c["name"])
 def test_flops_per_map(c):
-    config = manifest.read_json(manifest.ROOT / c["file"])
-    h, w = 256, 320
-    scaled = count_flops(config, h, w) * (1152 * 1600) / (h * w)
-    assert config["image_hw"] == [1152, 1600]
-    assert scaled == pytest.approx(config["flops_per_map"], rel=1e-3)
+    check_flops_per_map(manifest.read_json(manifest.ROOT / c["file"]))
 
 
 def test_noise_draws_are_the_models():
@@ -83,3 +93,14 @@ def test_warp_calls():
     assert len(counts.warp_calls(dif["model"], 16, (1152, 1600), 5)) == 20
     assert json.dumps(counts.warp_calls(dif["model"], 1, (1152, 1600), 5)[-1]) \
         == json.dumps([1, 6, 288, 400, 32, 4])
+
+
+def test_warp_calls_other_views():
+    """The Tanks and Temples shape on the cascade: 10 views, 96 coarse
+    planes, 1056 x 1920, B = 16."""
+    cas = manifest.read_json(manifest.HERE / "configs" / "casdiffmvs-dtu.json")
+    model = dict(cas["model"], numdepth_initial=96)
+    calls = counts.warp_calls(model, 16, (1056, 1920), 10)
+    assert len(calls) == 9 * (1 + 3 + 3)
+    assert list(calls[0]) == [16, 96, 132, 240, 48, 4]
+    assert list(calls[-1]) == [16, 4, 528, 960, 16, 4]

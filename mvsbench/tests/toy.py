@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import copy
 import json
+from math import prod
 from pathlib import Path
 
 from mvsbench import manifest
@@ -19,9 +20,10 @@ def toy_config(name: str):
     c = copy.deepcopy(c)
     c["name"] = f"toy-{name}"
     c["model"].update(numdepth_initial=8, numdepth=32)
+    c["flops_per_map"] = (c["flops_per_map"] * prod(TOY_HW)
+                          / prod(c["image_hw"]))
     c["image_hw"] = TOY_HW
     c["views"] = 3
-    c["flops_per_map"] = c["flops_per_map"] * (64 * 96) / (1152 * 1600)
     return c
 
 
