@@ -6,6 +6,7 @@ in the program's place); and a configuration and a cell that are only
 new files and entries, picked up by name."""
 
 import json
+import shutil
 
 import pytest
 import torch
@@ -32,8 +33,9 @@ def bench(tmp_path_factory):
     return root, toy.write(root, KIND_LIMITS)
 
 
-CELLS = ["toy-casdiffmvs-dtu.batch2", "toy-diffmvs-dtu.batch2",
-         "toy-casdiffmvs-dtu.request1", "toy-casdiffmvs-dtu.train2"]
+# one toy a real configuration and traffic kind, so a real cell added to
+# BENCHMARK.json runs here with no edit
+CELLS = list(dict.fromkeys(toy.names(manifest.load()).values()))
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -104,6 +106,17 @@ NEW_CELLS = [
         like="toy-casdiffmvs-dtu.batch2",
         end_to_end={"maps_per_s", "peak_gib", "setup_s"},
         traces=[False, True]), id="batch"),
+    # a fifth cell of the real BENCHMARK.json as a configuration brings it:
+    # a configuration file of the Tanks and Temples shape at its own size,
+    # a limits file and the entries, added to a copy of the real benchmark
+    # from which the toy benchmark is then built
+    pytest.param(dict(
+        base="casdiffmvs-dtu", real=True,
+        model={"numdepth_initial": 96, "scale": [0.0, 0.125, 0.025]},
+        shape={"image_hw": [1056, 1920], "views": 10}, mix=("batch16", None),
+        like="casdiffmvs-dtu.batch16",
+        end_to_end={"maps_per_s", "peak_gib", "setup_s"},
+        traces=[False, True]), id="real_fifth_cell"),
 ]
 
 
@@ -111,35 +124,60 @@ NEW_CELLS = [
 def test_new_config_and_cell_need_no_edit(tmp_path, new):
     """A configuration file, a traffic file where the mix is new, a
     limits file and a cell entry whose name is appended to the workloads
-    lists of the metrics it reports: nothing else changes."""
-    doc = toy.write(tmp_path, KIND_LIMITS)
-    cfg = toy.toy_config(new["base"])
-    cfg["name"] = "toy-new"
+    lists of the metrics it reports: nothing else changes. The `real`
+    case adds them to a copy of the real benchmark, and runs the toy cell
+    that the toy benchmark built from that copy gives the new cell."""
+    if new.get("real"):
+        here = tmp_path / "real"
+        for sub in ("configs", "traffic", "limits"):
+            shutil.copytree(manifest.HERE / sub, here / sub)
+        doc = manifest.load()
+        cfg = manifest.read_json(here / "configs" / f"{new['base']}.json")
+        cfg["name"] = "new"
+    else:
+        root = here = tmp_path
+        doc = toy.write(tmp_path, KIND_LIMITS)
+        cfg = toy.toy_config(new["base"])
+        cfg["name"] = "toy-new"
     cfg["model"].update(new["model"])
     cfg.update(new["shape"])
     if new["shape"]:
         # what a real configuration of this shape is held to
         cfg["flops_per_map"] = count_flops(cfg, *cfg["image_hw"])
         check_flops_per_map(cfg)
-    (tmp_path / "configs" / "toy-new.json").write_text(json.dumps(cfg))
+    (here / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
     mix, traffic = new["mix"]
     if traffic is not None:
-        (tmp_path / "traffic" / f"{mix}.json").write_text(json.dumps(traffic))
-    name = f"toy-new.{mix}"
-    kind = manifest.read_json(tmp_path / "traffic" / f"{mix}.json")["kind"]
-    (tmp_path / "limits" / f"{name}.json").write_text(
+        (here / "traffic" / f"{mix}.json").write_text(json.dumps(traffic))
+    name, like = f"{cfg['name']}.{mix}", new["like"]
+    kind = manifest.read_json(here / "traffic" / f"{mix}.json")["kind"]
+    (here / "limits" / f"{name}.json").write_text(
         json.dumps(KIND_LIMITS[kind]))
-    doc["workloads"].append({"name": name, "config": "toy-new",
+    doc["workloads"].append({"name": name, "config": cfg["name"],
                              "traffic": mix, "chips": 1, "why": "new"})
     for m in doc["end_to_end"] + doc["per_layer"]:
-        if new["like"] in m.get("workloads", []):
+        if like in m.get("workloads", []):
             m["workloads"].append(name)
-    cell = toy.cell(tmp_path, doc, name)
-    assert cell.config["model"] == dict(toy.toy_config(new["base"])["model"],
-                                        **new["model"])
+    if new.get("real"):
+        doc["configs"].append({"name": cfg["name"], "source": "new",
+                               "file": f"mvsbench/configs/{cfg['name']}.json",
+                               "reduced": [], "why": "new"})
+        assert {m["name"] for m in manifest.Cell(doc, name, here).per_layer} \
+            == {m["name"] for m in manifest.Cell(doc, like, here).per_layer}
+        toys = toy.names(doc, here)
+        root = tmp_path / "toy"
+        doc = toy.write(root, KIND_LIMITS, real=doc, real_dir=here)
+        name, like = toys[name], toys[like]
+        assert name == "toy-new.batch2"
+    cell = toy.cell(root, doc, name)
+    if new.get("real"):
+        assert cell.config == toy.toy_config("new", here)
+    else:
+        assert cell.config["model"] == dict(
+            toy.toy_config(new["base"])["model"], **new["model"])
     assert {m["name"] for m in cell.end_to_end} == new["end_to_end"]
     assert {m["name"] for m in cell.per_layer} == {
-        m["name"] for m in toy.cell(tmp_path, doc, new["like"]).per_layer}
+        m["name"] for m in toy.cell(root, doc, like).per_layer}
     for trace in new["traces"]:
         res = run.measure(cell, SEED, 0.3, trace, CPU)
         assert res["correct"] is True, res["compared"]

@@ -9,7 +9,8 @@ import torch
 from mvsbench import manifest, run
 from mvsbench.drive import Record
 from mvsbench.tests import toy
-from mvsbench.tests.test_mvsbench_cells import CPU, KIND_LIMITS, SEED
+from mvsbench.tests.test_mvsbench_cells import (CELLS, CPU, KIND_LIMITS,
+                                                SEED)
 
 from diffmvs_tpu_torch.utils import profiling
 
@@ -147,9 +148,7 @@ def bench(tmp_path_factory):
     return root, toy.write(root, KIND_LIMITS)
 
 
-@pytest.mark.parametrize("name", [
-    "toy-casdiffmvs-dtu.batch2", "toy-diffmvs-dtu.batch2",
-    "toy-casdiffmvs-dtu.request1", "toy-casdiffmvs-dtu.train2"])
+@pytest.mark.parametrize("name", CELLS)
 def test_toy_trace_runs_read_every_new_metric(bench, name):
     root, doc = bench
     cell = toy.cell(root, doc, name)

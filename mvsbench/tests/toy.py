@@ -1,6 +1,8 @@
 """A toy benchmark beside the real one, for the CPU tests: the real
 configurations' models at a few dozen pixels, the real traffic kinds at
-small batches, and the real metric readers (linked, not copied)."""
+small batches, and the real metric readers (linked, not copied). It is
+derived from the real BENCHMARK.json, so every real configuration and
+cell has its toy with no edit here."""
 
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ REAL = manifest.HERE
 TOY_HW = [64, 96]
 
 
-def toy_config(name: str):
-    c = manifest.read_json(REAL / "configs" / f"{name}.json")
+def toy_config(name: str, real_dir: Path = REAL):
+    c = manifest.read_json(real_dir / "configs" / f"{name}.json")
     c = copy.deepcopy(c)
     c["name"] = f"toy-{name}"
     c["model"].update(numdepth_initial=8, numdepth=32)
@@ -38,38 +40,56 @@ TOY_TRAFFIC = {
                "image_hw": TOY_HW, "pool": 2, "steps_per_epoch": 10,
                "checked_steps": 3, "trace_units": 1},
 }
+TOY_MIX = {t["kind"]: mix for mix, t in TOY_TRAFFIC.items()}
 
 
-def write(root: Path, limits=None):
+def toy_pair(w, real_dir: Path = REAL):
+    """(toy configuration, toy mix) of a real cell: its configuration's toy
+    under the toy mix of its traffic's kind."""
+    kind = manifest.read_json(
+        real_dir / "traffic" / f"{w['traffic']}.json")["kind"]
+    return f"toy-{w['config']}", TOY_MIX[kind]
+
+
+def names(real, real_dir: Path = REAL):
+    """{real cell: toy cell}, the toy cell named toy-<config>.<toy mix>.
+    Real cells of one configuration and traffic kind share a toy."""
+    return {w["name"]: "{}.{}".format(*toy_pair(w, real_dir))
+            for w in real["workloads"]}
+
+
+def write(root: Path, limits=None, real=None, real_dir: Path = REAL):
     """A benchmark directory at root (configs/, traffic/, limits/ and a
-    link to the real metrics/) and its manifest, a copy of the real
-    BENCHMARK.json whose cells are toy ones."""
+    link to the real metrics/) and its manifest: a copy of the real
+    BENCHMARK.json (`real`, the repository's when None) with a
+    toy configuration for each real one and a toy cell for each distinct
+    toy of a real cell, each metric's cells mapped to their toys."""
     for sub in ("configs", "traffic", "limits"):
         (root / sub).mkdir(parents=True, exist_ok=True)
     (root / "metrics").symlink_to(REAL / "metrics")
-    real = manifest.load()
-    cells = []
-    for cfg in ("casdiffmvs-dtu", "diffmvs-dtu"):
-        (root / "configs" / f"toy-{cfg}.json").write_text(
-            json.dumps(toy_config(cfg)))
+    if real is None:
+        real = manifest.load()
+    for c in real["configs"]:
+        (root / "configs" / f"toy-{c['name']}.json").write_text(
+            json.dumps(toy_config(c["name"], real_dir)))
     for name, t in TOY_TRAFFIC.items():
         (root / "traffic" / f"{name}.json").write_text(json.dumps(t))
-    pairs = [("toy-casdiffmvs-dtu", "batch2"), ("toy-diffmvs-dtu", "batch2"),
-             ("toy-casdiffmvs-dtu", "request1"),
-             ("toy-casdiffmvs-dtu", "train2")]
-    for cfg, mix in pairs:
-        cells.append({"name": f"{cfg}.{mix}", "config": cfg,
-                      "traffic": mix, "chips": 1, "why": "toy"})
+    cells = {}
+    for w in real["workloads"]:
+        cfg, mix = toy_pair(w, real_dir)
+        name = f"{cfg}.{mix}"
+        cells[name] = {"name": name, "config": cfg, "traffic": mix,
+                       "chips": 1, "why": "toy"}
         if limits is not None:
-            (root / "limits" / f"{cfg}.{mix}.json").write_text(
+            (root / "limits" / f"{name}.json").write_text(
                 json.dumps(limits[TOY_TRAFFIC[mix]["kind"]]))
-    names = {real_name: toy["name"] for real_name, toy in zip(
-        [w["name"] for w in real["workloads"]], cells)}
     doc = copy.deepcopy(real)
-    doc["workloads"] = cells
+    doc["workloads"] = list(cells.values())
+    toys = names(real, real_dir)
     for m in doc["end_to_end"] + doc["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = [names[w] for w in m["workloads"]]
+            m["workloads"] = list(dict.fromkeys(
+                toys[w] for w in m["workloads"]))
     return doc
 
 
