@@ -5,10 +5,12 @@
 Phases (one line each; any failure exits non-zero):
   1. device       -- needs CUDA; prints the card's name and power limit;
                      TF32 off
-  2. build        -- compiles the kernels' three sources with nvcc, side by
+  2. build        -- compiles the kernels' five sources with nvcc, side by
                      side: K1 (ops/csrc/warp_corr.cu), K2 (warp_corr_bwd.cu),
                      K3 with its operand and projection kernels
-                     (warp_corr_pre.cu)
+                     (warp_corr_pre.cu), PixelViewWeight's
+                     (pixel_view_weight.cu) and FeatureNet's stem
+                     (feature_stem.cu)
   3. jax_ckpt     -- the JAX package's orbax checkpoints with no JAX on the
                      machine: tests/data/orbax_state/ (a toy train state
                      saved by its save_checkpoint, and arrays orbax split
@@ -39,6 +41,15 @@ Phases (one line each; any failure exits non-zero):
                      replaces at inference); then
                      ragged shapes that cut every tile edge, one plane, and
                      G = 8
+  4c. stem_kernel -- FeatureNet's stem kernel (ops/feature_stem.py: conv0
+                     and conv1[0], BatchNorm and ReLU, bf16) against the
+                     module chain over the 80 and 5 images of B = 16 and
+                     B = 1 at 1152x1600 (kernel_times.time_stem), both
+                     held to the float32 chain: the kernel's max and mean
+                     abs error at most 1.5x the bf16 chain's, the chain's
+                     strides; times, the bytes bound, the chain's ms; then
+                     ragged and odd sizes, and one launch through
+                     FeatureNet.forward (none in training mode)
   5. train_kernel -- K2 against autograd of the plain version at the
                      training shapes (B=4 at 512x640: the sweep and the two
                      refinement stages) with degenerate depths, f32 and
@@ -202,6 +213,12 @@ PVW_TOL = 1e-5
 # tiles of 18 x 30), one plane, G = 8
 PVW_ODD = ((2, 2, 5, 7, 13, 4), (2, 1, 5, 19, 37, 4), (1, 1, 1, 9, 31, 4),
            (2, 1, 6, 19, 37, 8))
+# FeatureNet's stem kernel against the float32 chain: at most this times
+# the bf16 module chain's own max and mean abs error
+STEM_ERR_RATIO = 1.5
+# (N, H, W) of the stem kernel's odd cases: ragged tiles (output tiles of
+# 16 x 32 half-res pixels), odd sizes, the tank preset's size
+STEM_ODD = ((2, 96, 160), (3, 37, 75), (1, 5, 9), (2, 1056, 1920))
 # K2's bf16 gradients against the plain version's: both are the bf16
 # roundings of float32 sums taken in other orders, so they differ by at
 # most one bf16 ulp (2^-8 to 2^-7 relative) where a sum lies near a
@@ -435,6 +452,59 @@ def phase_pvw_kernel(run):
             check(err <= PVW_TOL, f"pvw {tag}: max abs err {err}")
             errs.append(f"{tag}={err:.1e}")
     log("pvw_kernel", shape="odd", max_abs_err=",".join(errs))
+
+
+def stem_ok(r):
+    """The stem kernel's errors within STEM_ERR_RATIO of the bf16 chain's,
+    and the chain's strides."""
+    return (r["strides_equal"] and r["max_abs_err"]
+            <= STEM_ERR_RATIO * r["module_max_abs_err"]
+            and r["mean_abs_err"]
+            <= STEM_ERR_RATIO * r["module_mean_abs_err"])
+
+
+def phase_stem_kernel(run):
+    """FeatureNet's stem kernel against the module chain at the cells'
+    shapes (kernel_times.time_stem) and at odd sizes; its launches through
+    FeatureNet.forward."""
+    from diffmvs_tpu_torch.ops import feature_stem
+    from diffmvs_tpu_torch.tools.kernel_times import (
+        stem_chain, stem_errors, stem_images, stem_net, time_stem)
+    from diffmvs_tpu_torch.utils import profiling
+
+    dev, gen = run["dev"], run["gen"]
+    res = {"stem": {}}
+    time_stem(res, dev, gen)
+    for key, r in res["stem"].items():
+        check(r["route"] == "kernel" and stem_ok(r), f"stem {key}: {r}")
+        log("stem_kernel", shape=key, **{
+            k: (f"{v:.4g}" if isinstance(v, float) else v)
+            for k, v in r.items() if k != "route"})
+    run["stem_rows"] = res["stem"]
+    errs = []
+    net = stem_net(dev, seed=1)
+    for n, h, w in STEM_ODD:
+        x = stem_images(n, h, w, dev, gen)
+        with torch.inference_mode():
+            got = feature_stem.stem(x, feature_stem.params(net))
+            r = dict(stem_errors(net, x, got),
+                     strides_equal=got.stride() == stem_chain(net, x).stride())
+        torch.cuda.synchronize()
+        check(stem_ok(r), f"stem {n}x{h}x{w}: {r}")
+        errs.append(f"{n}x{h}x{w}={r['max_abs_err']:.1e}/"
+                    f"{r['module_max_abs_err']:.1e}")
+    x = stem_images(2, 64, 96, dev, gen)
+    counts = []
+    for train in (False, True):
+        net.train(train)
+        before = profiling.counter(feature_stem.COUNTER)
+        with torch.no_grad():
+            net(x)
+        counts.append(profiling.counter(feature_stem.COUNTER) - before)
+    net.eval()
+    check(counts == [1, 0], f"stem launches eval / train {counts}")
+    log("stem_kernel", shape="odd", max_abs_err_kernel_vs_module=",".join(errs),
+        launches_eval_train=repr(counts))
 
 
 def shard_inputs(name, stage, d, s, n, hh, ww, projs, views, dev, gen):
@@ -687,12 +757,14 @@ def serve(run, phase, compute_dtype, gate):
     warp: mean relative depth difference below `gate`. Returns maps/s and
     the peak memory (GiB)."""
     from diffmvs_tpu_torch.api import DepthRunner
-    from diffmvs_tpu_torch.ops import view_weight, warp_corr
+    from diffmvs_tpu_torch.ops import feature_stem, view_weight, warp_corr
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
     from diffmvs_tpu_torch.utils import profiling
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
     hh, ww, views = 1152, 1600, 5
+    # the stem kernel runs in bf16 only (a float32 stem keeps the module)
+    stem_per_request = int(compute_dtype == "bfloat16")
     runner = DepthRunner.from_random("casdiffmvs", image_hw=(hh, ww),
                                      views=views, device="cuda", seed=0,
                                      numdepth_initial=48, numdepth=384,
@@ -703,6 +775,7 @@ def serve(run, phase, compute_dtype, gate):
     warp_corr.reset_counts()
     results, req_ms = [], []
     pvw0 = profiling.counter(view_weight.COUNTER)
+    stem0 = profiling.counter(feature_stem.COUNTER)
     for imgs, pr, dv in requests:
         before = warp_corr.launches
         pvw = profiling.counter(view_weight.COUNTER)
@@ -718,6 +791,10 @@ def serve(run, phase, compute_dtype, gate):
               "one PixelViewWeight kernel launch a request")
     launches = warp_corr.launches
     pvw_launches = profiling.counter(view_weight.COUNTER) - pvw0
+    stem_launches = profiling.counter(feature_stem.COUNTER) - stem0
+    check(stem_launches == stem_per_request * len(requests),
+          f"{stem_launches} stem kernel launches in {len(requests)} "
+          f"{compute_dtype} requests")
     by_shape = dict(warp_corr.launches_by_shape)
     check(warp_corr.bwd_launches == warp_corr.pre_launches
           == warp_corr.operand_launches == warp_corr.projection_launches
@@ -751,12 +828,13 @@ def serve(run, phase, compute_dtype, gate):
         maps_per_s=f"{figures['maps_per_s']:.3f}",
         peak_mem_gib=f"{figures['peak_gib']:.3f}",
         launches=launches, launches_per_request=launches // len(requests),
-        pvw_launches=pvw_launches,
+        pvw_launches=pvw_launches, stem_launches=stem_launches,
         plain_vs_kernel_mean_rel=f"{rel.mean().item():.3e}",
         plain_vs_kernel_max_rel=f"{rel.max().item():.3e}",
         gate_mean_rel=f"{gate:.0e}")
     check(rel.mean().item() < gate, f"plain vs kernel {rel.mean().item()}")
     figures["pvw_launches"] = pvw_launches
+    figures["stem_launches"] = stem_launches
     return by_shape, figures
 
 
@@ -792,7 +870,7 @@ def phase_main_b16(run):
 
     from diffmvs_tpu_torch.api import DepthRunner
     from diffmvs_tpu_torch.bench import infer_config
-    from diffmvs_tpu_torch.ops import view_weight
+    from diffmvs_tpu_torch.ops import feature_stem, view_weight
     from diffmvs_tpu_torch.ops.correlation import (warp_and_correlate,
                                                    warp_and_correlate_plain)
     from diffmvs_tpu_torch.utils import profiling
@@ -825,9 +903,13 @@ def phase_main_b16(run):
     runner = DepthRunner(cfg, device=dev, seed=0, warp=checked)
     t0 = time.time()
     pvw = profiling.counter(view_weight.COUNTER)
+    stem = profiling.counter(feature_stem.COUNTER)
     depth, confs = runner(imgs, projs, dv)
     torch.cuda.synchronize()
     run["pvw_launches_b16"] = profiling.counter(view_weight.COUNTER) - pvw
+    run["stem_launches_b16"] = profiling.counter(feature_stem.COUNTER) - stem
+    check(run["stem_launches_b16"] == 1,
+          f"{run['stem_launches_b16']} stem kernel launches a forward")
     check(len(calls) == 28 and all(b == n for b, _ in calls),
           f"{len(calls)} warps, batches {sorted({b for b, _ in calls})}")
     check(run["pvw_launches_b16"] == 1,
@@ -2715,7 +2797,7 @@ def main():
            "k2_rows_sp": {}, "k2_rows_sp_bf16": {}, "k3_rows": [],
            "operand_rows": []}
     for phase in (phase_jax_ckpt, phase_kernel, phase_pvw_kernel,
-                  phase_train_kernel,
+                  phase_stem_kernel, phase_train_kernel,
                   phase_small, phase_main,
                   phase_main_bf16, phase_main_b16, phase_train_small,
                   phase_train, phase_train_bf16, phase_k3_kernel, phase_export,
@@ -2811,7 +2893,26 @@ def main():
             "ms": r["ms"], "card_ms": r["card_ms"], "cold_ms": r["cold_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    check(len(kernels) == 35, f"{len(kernels)} kernel rows")
+    # FeatureNet's stem kernel replaces no TPU kernel either (XLA's convs
+    # in the JAX package); launches as counted in main_bf16 (5 images a
+    # request) and main_b16 (80)
+    stem_launches = {"n5:bf16": run["main_bf16"]["stem_launches"],
+                     "n80:bf16": run["stem_launches_b16"]}
+    for key, r in run["stem_rows"].items():
+        kernels.append({
+            "name": f"feature_stem:{key}", "route": "cuda",
+            "source": "diffmvs_tpu_torch/ops/csrc/feature_stem.cu",
+            "replaces": "diffmvs_tpu/nn/feature.py FeatureNet conv0, "
+                        "conv1[0] (XLA)",
+            "note": "the port's own kernel, not a TPU kernel: three convs, "
+                    "BatchNorm and ReLU, the image's bf16 cast",
+            "launches": stem_launches.get(key),
+            "max_abs_err": r["max_abs_err"],
+            "module_max_abs_err": r["module_max_abs_err"],
+            "ms": r["ms"], "card_ms": r["card_ms"], "cold_ms": r["cold_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    check(len(kernels) == 37, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,7 +64,9 @@ SOURCES = {"warp_corr": CSRC / "warp_corr.cu",          # K1
            "warp_corr_bwd": CSRC / "warp_corr_bwd.cu",  # K2
            "warp_corr_pre": CSRC / "warp_corr_pre.cu",  # K3
            # PixelViewWeight's conv stack (ops/view_weight.py)
-           "pixel_view_weight": CSRC / "pixel_view_weight.cu"}
+           "pixel_view_weight": CSRC / "pixel_view_weight.cu",
+           # FeatureNet's full-resolution stem (ops/feature_stem.py)
+           "feature_stem": CSRC / "feature_stem.cu"}
 HEADERS = (CSRC / "warp_geom.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "diffmvs_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,9 +1,10 @@
 """K1 and K2 on the card at the main path's and the training cell's
 shapes, K3 (with its operands and its entry, warp_corr(...,
-batch_rows=False)) at the three DTU shapes, and PixelViewWeight's fused
-kernel (ops/view_weight.py) at the sweep's shape for B = 16 and B = 1:
-CUDA-event times with L2 warm and with L2 flushed, beside each kernel's
-bound.
+batch_rows=False)) at the three DTU shapes, PixelViewWeight's fused
+kernel (ops/view_weight.py) at the sweep's shape for B = 16 and B = 1,
+and FeatureNet's stem kernel (ops/feature_stem.py) over the 80 and 5
+images of B = 16 and B = 1 at 1152x1600: CUDA-event times with L2 warm
+and with L2 flushed, beside each kernel's bound.
 
     python3 diffmvs_tpu_torch/tools/kernel_times.py [--root DIR] [--dtype bf16]
 
@@ -22,8 +23,13 @@ its plain corner_operands (the route is named). PixelViewWeight's four
 views are timed through the kernel, beside the module's cuDNN chain view
 by view, which is both its plain version (the port's path in training, on
 width shards and on the CPU) and the library it replaces at inference:
-`plain_ms` and `library_ms` are that one timing. Needs CUDA; fails
-without it.
+`plain_ms` and `library_ms` are that one timing. The stem is timed
+beside the module chain it replaces (conv0, conv1[0]: cuDNN's bf16
+convolutions, BatchNorm, ReLU), again its plain version and the library
+(`plain_ms`, `library_ms`), with the kernel's and the bf16 chain's max and
+mean abs error against the float32 chain; a tree without the stem kernel
+times the chain alone (`"route": "module"`). Needs CUDA; fails without
+it.
 
 chip_smoke.py takes its timing, bounds and inputs from here too.
 """
@@ -41,6 +47,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12       # bf16 on the tensor cores, dense
 L2_FLUSH_BYTES = 128 * 2**20   # written between launches: > the 50 MB L2
 SPIN_CYCLES = 1_000_000        # ~0.5 ms of clock cycles queued ahead of a
                                # timed call (torch.cuda._sleep)
@@ -95,11 +102,12 @@ def timings(fn):
                 cold_ms=cuda_ms(fn, cold=True))
 
 
-def bound(nbytes, ops):
-    """Least time (ms) at the card's memory rate and f32 rate, and which
+def bound(nbytes, ops, flops=H100_F32_FLOPS):
+    """Least time (ms) at the card's memory rate and the operations' rate
+    (f32 outside the tensor cores unless `flops` says otherwise), and which
     of the two bounds it."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_FLOPS * 1e3
+    t_ops = ops / flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -268,6 +276,99 @@ def time_pvw(res, dev, gen):
         del x32, x, cor_list
 
 
+def stem_bound(n, h, w):
+    """FeatureNet's stem over n images of h x w: each float32 image read
+    once (12 bytes a pixel), conv1[0]'s bf16 activation written once (32
+    bytes a half-res pixel), against the three convolutions' operations
+    on the tensor cores: 2 * (27 * 8 + 72 * 8) a pixel and 2 * 200 * 16 a
+    half-res pixel (3184 a pixel; BatchNorm and ReLU not counted)."""
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    return bound(n * h * w * 12 + n * ho * wo * 32,
+                 n * (h * w * 2 * (27 + 72) * 8 + ho * wo * 2 * 200 * 16),
+                 H100_BF16_FLOPS)
+
+
+# FeatureNet's stem: the images of B = 16 and B = 1 view-sets of 5 views
+# at DTU's size
+STEM_IMAGES = (80, 5)
+STEM_HW = (1152, 1600)
+
+
+def stem_net(dev, seed=0, dtype=torch.bfloat16):
+    """An eval-mode FeatureNet of the tree imported computing in dtype,
+    its stem's BatchNorm statistics and affine terms away from their
+    initial values."""
+    from diffmvs_tpu_torch.nn.feature import FeatureNet
+    torch.manual_seed(seed)
+    net = FeatureNet(dtype=dtype)
+    with torch.no_grad():
+        for b in (net.conv0[0], net.conv0[1], net.conv1[0]):
+            b.bn.running_mean.uniform_(-0.5, 0.5)
+            b.bn.running_var.uniform_(0.5, 2.0)
+            b.bn.weight.uniform_(0.5, 1.5)
+            b.bn.bias.uniform_(-0.3, 0.3)
+    return net.eval().to(dev)
+
+
+def stem_images(n, h, w, dev, gen):
+    """n images in [0, 1) as FeatureNet gets them from the model: the
+    channels-last float32 view [n, 3, h, w] of [n, h, w, 3]."""
+    return torch.rand((n, h, w, 3), device=dev,
+                      generator=gen).permute(0, 3, 1, 2)
+
+
+def stem_chain(net, x):
+    """The module chain of the stem: conv0, then conv1[0]."""
+    return net.conv1[0](net.conv0(x))
+
+
+def stem_errors(net, x, got):
+    """{max_abs_err, mean_abs_err} of got, and the bf16 module chain's
+    own (`module_*`), against the float32 chain of net's weights (a float32
+    twin; TF32 off is the caller's)."""
+    twin = stem_net(x.device, dtype=torch.float32)
+    twin.load_state_dict(net.state_dict())
+    with torch.inference_mode():
+        want = stem_chain(twin, x)
+        err = (got.float() - want).abs()
+        mod = (stem_chain(net, x).float() - want).abs()
+    return dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                module_max_abs_err=mod.max().item(),
+                module_mean_abs_err=mod.mean().item())
+
+
+def time_stem(res, dev, gen):
+    """FeatureNet's stem over STEM_IMAGES images of STEM_HW, into
+    res["stem"]: the kernel's timings and errors, the module chain's ms,
+    the bound; a tree without the kernel: the chain's timings."""
+    h, w = STEM_HW
+    net = stem_net(dev)
+    try:
+        from diffmvs_tpu_torch.ops import feature_stem
+    except ImportError:
+        feature_stem = None
+    for n in STEM_IMAGES:
+        x = stem_images(n, h, w, dev, gen)
+        bound_ms, bound_by = stem_bound(n, h, w)
+        with torch.inference_mode():
+            library = timings(lambda: stem_chain(net, x))
+            row = dict(route="module", **library)
+            if feature_stem is not None:
+                layers = feature_stem.params(net)
+                got = feature_stem.stem(x, layers)
+                row = dict(route="kernel",
+                           **timings(lambda: feature_stem.stem(x, layers)),
+                           **stem_errors(net, x, got),
+                           strides_equal=(got.stride()
+                                          == stem_chain(net, x).stride()))
+        res["stem"][f"n{n}:bf16"] = dict(
+            **row, plain_ms=library["card_ms"],
+            library_ms=library["card_ms"],
+            library_cold_ms=library["cold_ms"],
+            bound_ms=bound_ms, bound_by=bound_by)
+        del x
+
+
 def make_depth(name, n, d, h, w, dev, gen, smooth=False):
     """Sweep planes 4..10 m, or refinement hypotheses 0.05 m apart around
     a depth of 4..10 m drawn per pixel, or with smooth=True, a depth map
@@ -372,7 +473,8 @@ def main(argv=None):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"module": warp_corr.__file__, "smi": smi, "k2_dtype": args.dtype,
-           "k1": {}, "k2": {}, "k3": {}, "k3_operands": {}, "pvw": {}}
+           "k1": {}, "k2": {}, "k3": {}, "k3_operands": {}, "pvw": {},
+           "stem": {}}
     # the refinement shapes also with smooth depth maps (make_depth)
     cases = [(name, False) for name in INFER_SHAPES] + [
         (name, True) for name in INFER_SHAPES if name != "sweep"]
@@ -409,6 +511,7 @@ def main(argv=None):
             **times, bound_ms=b)
     time_k3(warp_corr, res, dev, gen)
     time_pvw(res, dev, gen)
+    time_stem(res, dev, gen)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -2,7 +2,7 @@
 training step, under torch.profiler.
 
     python3 -m diffmvs_tpu_torch.tools.profile_main [--requests 2] [--train]
-        [--dtype bf16] [--batch 16] [--host]
+        [--dtype bf16] [--batch 16] [--host] [--ops]
 
 Default: DepthRunner.from_random("casdiffmvs", device="cuda", seed=0) at
 DTU size (1152x1600, 5 views, 48/384 hypotheses) answers one warm-up
@@ -26,7 +26,10 @@ host self ms, its device ms (the model's stages) and its counters a
 request or step; the counters of set-up (the kernels' build, with its
 seconds); and the longest idle gaps of the card, each labelled with the
 innermost span (its "diffmvs." range in the trace) the host was in when
-it opened. Needs CUDA; fails without it.
+it opened. --ops records the operators' input shapes and prints the
+device time by kernel and the outermost aten operator that launched it,
+with its input shapes (which module a kernel belongs to). Needs CUDA;
+fails without it.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ GROUPS = (
     ("cornersamples", "warp_corr_pre (K3, hand-written)"),
     ("warp_corr", "warp_corr (K1, hand-written)"),
     ("pvw_conv3d", "PixelViewWeight (hand-written)"),
+    ("feature_stem", "FeatureNet stem (hand-written)"),
     ("multi_tensor", "optimizer"),
     ("bn_bw", "normalization"),
     ("memcpy", "host-to-device copy"),
@@ -174,6 +178,28 @@ def labelled_gaps(kernels, spans, top=10):
     return sorted(gaps, reverse=True)[:top]
 
 
+def op_rows(events, requests, top):
+    """The `top` (kernel, operator, input shapes) triples by device ms a
+    request: each kernel credited to the outermost aten operator above
+    the CPU event that launched it (that event itself where none is)."""
+    ms = collections.Counter()
+    calls = collections.Counter()
+    for ev in events:
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        op, up = ev, ev.cpu_parent
+        while up is not None:
+            if up.name.startswith("aten::"):
+                op = up
+            up = up.cpu_parent
+        for k in ev.kernels:
+            key = (k.name, op.name, str(op.input_shapes))
+            ms[key] += k.duration / 1e3 / requests
+            calls[key] += 1
+    return [(v, calls[key] // requests, *key)
+            for key, v in ms.most_common(top)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=2)
@@ -187,6 +213,9 @@ def main(argv=None):
     ap.add_argument("--host", action="store_true",
                     help="each request's view-set from host memory, its "
                          "answers back there (inference only)")
+    ap.add_argument("--ops", action="store_true",
+                    help="device time by kernel and launching operator "
+                         "with its input shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: CUDA is not available")
@@ -202,7 +231,8 @@ def main(argv=None):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     wall = []
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+    with torch.profiler.profile(activities=acts, acc_events=True,
+                                record_shapes=args.ops) as prof:
         for _ in range(args.requests):
             t0 = time.perf_counter()
             work()
@@ -240,6 +270,11 @@ def main(argv=None):
     for name, us in per_kernel.most_common(args.top):
         print(f"{us / 1e3 / args.requests:9.3f} ms/{unit[:3]} "
               f"{counts[name] // args.requests:5d}x  {name[:110]}")
+    if args.ops:
+        for ms, n, kernel, op, shapes in op_rows(prof.events(),
+                                                 args.requests, 4 * args.top):
+            print(f"{ms:9.3f} ms/{unit[:3]} {n:5d}x  {kernel[:60]}  {op} "
+                  f"{shapes[:160]}")
     print_spans(prof, unit)
 
 

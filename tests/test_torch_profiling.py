@@ -520,3 +520,27 @@ def test_profile_main_span_table_and_gaps(registry):
     assert profile_main.labelled_gaps(kernels, [])[0][1] == (
         "outside the program's spans")
     profile_main.print_spans(prof, "request")
+
+
+def test_profile_main_op_rows():
+    """profile_main --ops credits each kernel to the outermost aten
+    operator above the CPU event that launched it (the event itself where
+    none is), with its input shapes, a request."""
+    from types import SimpleNamespace as NS
+    cpu = torch.autograd.DeviceType.CPU
+    span = NS(name="diffmvs.model.features", cpu_parent=None)
+    conv2d = NS(name="aten::conv2d", input_shapes=[[80, 8, 64, 96]],
+                cpu_parent=span)
+    cudnn = NS(name="aten::cudnn_convolution", input_shapes=[[80, 8]],
+               cpu_parent=conv2d)
+    launch = NS(name="cudaLaunchKernel", device_type=cpu, cpu_parent=cudnn,
+                kernels=[NS(name="xmma_fprop", duration=3000.0)])
+    bare = NS(name="cudaMemcpyAsync", device_type=cpu, cpu_parent=span,
+              input_shapes=[], kernels=[NS(name="memcpy", duration=500.0)])
+    idle = NS(name="aten::relu", device_type=cpu, cpu_parent=None,
+              kernels=[])
+    rows = profile_main.op_rows([launch, launch, bare, idle], 2, 10)
+    assert rows == [(3.0, 1, "xmma_fprop", "aten::conv2d",
+                     "[[80, 8, 64, 96]]"),
+                    (0.25, 0, "memcpy", "cudaMemcpyAsync", "[]")]
+    assert profile_main.op_rows([launch], 1, 0) == []
