@@ -5,8 +5,9 @@
 Phases (one line each; any failure exits non-zero):
   1. device       -- needs CUDA; prints the card's name and power limit;
                      TF32 off
-  2. build        -- compiles the kernels' five sources with nvcc, side by
-                     side: K1 (ops/csrc/warp_corr.cu), K2 (warp_corr_bwd.cu),
+  2. build        -- ops/native.py compiles every source of ops/csrc/ with
+                     nvcc, side by side, five today: K1
+                     (ops/csrc/warp_corr.cu), K2 (warp_corr_bwd.cu),
                      K3 with its operand and projection kernels
                      (warp_corr_pre.cu), PixelViewWeight's
                      (pixel_view_weight.cu) and FeatureNet's stem
@@ -204,6 +205,7 @@ import torch
 from diffmvs_tpu_torch.tools.kernel_times import (
     bound, bwd_bound, cuda_ms, k2_global_atomics, make_depth, operands_bound,
     pre_bound, sample_counts, timings, warp_bound)
+from diffmvs_tpu_torch.utils import profiling
 
 CORR_TOL = dict(rtol=1e-4, atol=1e-5)
 # PixelViewWeight's kernel against the module's chain: float32 sums of 27 G
@@ -470,7 +472,6 @@ def phase_stem_kernel(run):
     from diffmvs_tpu_torch.ops import feature_stem
     from diffmvs_tpu_torch.tools.kernel_times import (
         stem_chain, stem_errors, stem_images, stem_net, time_stem)
-    from diffmvs_tpu_torch.utils import profiling
 
     dev, gen = run["dev"], run["gen"]
     res = {"stem": {}}
@@ -759,7 +760,6 @@ def serve(run, phase, compute_dtype, gate):
     from diffmvs_tpu_torch.api import DepthRunner
     from diffmvs_tpu_torch.ops import feature_stem, view_weight, warp_corr
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
-    from diffmvs_tpu_torch.utils import profiling
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
     hh, ww, views = 1152, 1600, 5
@@ -777,7 +777,7 @@ def serve(run, phase, compute_dtype, gate):
     pvw0 = profiling.counter(view_weight.COUNTER)
     stem0 = profiling.counter(feature_stem.COUNTER)
     for imgs, pr, dv in requests:
-        before = warp_corr.launches
+        before = profiling.counter("warp_corr.k1")
         pvw = profiling.counter(view_weight.COUNTER)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -785,20 +785,20 @@ def serve(run, phase, compute_dtype, gate):
         torch.cuda.synchronize()
         req_ms.append((time.perf_counter() - t0) * 1e3)
         results.append((depth, confs))
-        check(warp_corr.launches - before == 28,
-              f"{warp_corr.launches - before} launches in one request")
+        k1 = profiling.counter("warp_corr.k1") - before
+        check(k1 == 28, f"{k1} launches in one request")
         check(profiling.counter(view_weight.COUNTER) - pvw == 1,
               "one PixelViewWeight kernel launch a request")
-    launches = warp_corr.launches
+    launches = profiling.counter("warp_corr.k1")
     pvw_launches = profiling.counter(view_weight.COUNTER) - pvw0
     stem_launches = profiling.counter(feature_stem.COUNTER) - stem0
     check(stem_launches == stem_per_request * len(requests),
           f"{stem_launches} stem kernel launches in {len(requests)} "
           f"{compute_dtype} requests")
-    by_shape = dict(warp_corr.launches_by_shape)
-    check(warp_corr.bwd_launches == warp_corr.pre_launches
-          == warp_corr.operand_launches == warp_corr.projection_launches
-          == 0, "only K1 during inference")
+    by_shape = dict(profiling.keyed("warp_corr.k1"))
+    check(not any(profiling.counter(f"warp_corr.{k}")
+                  for k in ("k2", "k3", "operands", "projection")),
+          "only K1 during inference")
     peak = torch.cuda.max_memory_allocated()
 
     for depth, confs in results:
@@ -817,7 +817,8 @@ def serve(run, phase, compute_dtype, gate):
                         device="cuda", seed=runner.seed,
                         warp=warp_and_correlate_plain)
     depth_plain, _ = plain(*requests[0])
-    check(warp_corr.launches == launches, "no K1 launch on the plain path")
+    check(profiling.counter("warp_corr.k1") == launches,
+          "no K1 launch on the plain path")
     del plain
     rel = ((results[0][0] - depth_plain).abs()
            / depth_plain.abs().clamp_min(1e-12))
@@ -873,7 +874,6 @@ def phase_main_b16(run):
     from diffmvs_tpu_torch.ops import feature_stem, view_weight
     from diffmvs_tpu_torch.ops.correlation import (warp_and_correlate,
                                                    warp_and_correlate_plain)
-    from diffmvs_tpu_torch.utils import profiling
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
     dev = run["dev"]
@@ -1008,9 +1008,9 @@ def train_cell(run, phase, model_cfg, gates):
 
     def on_step(step, scalars):
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), warp_corr.launches,
-                      warp_corr.bwd_launches, float(scalars["loss"]),
-                      float(scalars["grad_norm"])))
+        marks.append((time.perf_counter(), profiling.counter("warp_corr.k1"),
+                      profiling.counter("warp_corr.k2"),
+                      float(scalars["loss"]), float(scalars["grad_norm"])))
 
     torch.cuda.reset_peak_memory_stats()
     warp_corr.reset_counts()
@@ -1019,10 +1019,11 @@ def train_cell(run, phase, model_cfg, gates):
     run_training(state, cfg, batches, batches[:1], str(logdir),
                  on_step=on_step)
     torch.cuda.synchronize()
-    k2_launches = dict(warp_corr.bwd_launches_by_shape)
-    k1_total, k2_total = warp_corr.launches, warp_corr.bwd_launches
-    check(warp_corr.pre_launches == warp_corr.operand_launches
-          == warp_corr.projection_launches == 0,
+    k2_launches = dict(profiling.keyed("warp_corr.k2"))
+    k1_total = profiling.counter("warp_corr.k1")
+    k2_total = profiling.counter("warp_corr.k2")
+    check(not any(profiling.counter(f"warp_corr.{k}")
+                  for k in ("k3", "operands", "projection")),
           "no K3, operand or projection launches in training")
     peak = torch.cuda.max_memory_allocated()
     check(all(s["exp_avg"].dtype == torch.float32
@@ -1053,12 +1054,13 @@ def train_cell(run, phase, model_cfg, gates):
     overrides = synthetic_train_overrides(model_cfg, b, hh, ww, seed=7)
 
     def loss_and_grads(model=state.model):
-        before = (warp_corr.launches, warp_corr.bwd_launches)
+        k1 = profiling.counter("warp_corr.k1")
+        k2 = profiling.counter("warp_corr.k2")
         loss, _, outputs, _ = compute_gradients(model, cfg, batch,
                                                 train_overrides=overrides)
         torch.cuda.synchronize()
-        counts = (warp_corr.launches - before[0],
-                  warp_corr.bwd_launches - before[1])
+        counts = (profiling.counter("warp_corr.k1") - k1,
+                  profiling.counter("warp_corr.k2") - k2)
         return (loss.item(), flat_grads(model),
                 outputs["depth"][-1].detach(), counts)
 
@@ -1208,25 +1210,22 @@ def phase_k3_kernel(run):
     # the path: the op's batch_rows=False entry point, counted from 0
     warp_corr.reset_counts()
     outs, counts = [], []
+    k3_names = ("warp_corr.k3", "warp_corr.operands", "warp_corr.projection")
     with torch.inference_mode():
         for name, d, c, h, w, sp, rp, depth, src, ref in cases:
-            before = (warp_corr.pre_launches, warp_corr.operand_launches,
-                      warp_corr.projection_launches)
+            before = [profiling.counter(n) for n in k3_names]
             outs.append(warp_corr.warp_corr(src, ref, sp, rp, depth, 4,
                                             batch_rows=False))
-            counts.append((warp_corr.pre_launches - before[0],
-                           warp_corr.operand_launches - before[1],
-                           warp_corr.projection_launches - before[2]))
+            counts.append(tuple(profiling.counter(n) - b
+                                for n, b in zip(k3_names, before)))
             check(counts[-1] == (1, 1, 1), f"{counts[-1]} K3 / operand / "
                   f"projection launches in one call")
     torch.cuda.synchronize()
-    check(warp_corr.pre_launches == warp_corr.operand_launches
-          == warp_corr.projection_launches == len(cases)
-          and warp_corr.launches == 0,
-          f"{warp_corr.pre_launches} K3 / {warp_corr.operand_launches} "
-          f"operand / {warp_corr.projection_launches} projection / "
-          f"{warp_corr.launches} K1 launches")
-    projection_launches = warp_corr.projection_launches
+    k3, ops, proj, k1 = (profiling.counter(n)
+                         for n in (*k3_names, "warp_corr.k1"))
+    check(k3 == ops == proj == len(cases) and k1 == 0,
+          f"{k3} K3 / {ops} operand / {proj} projection / {k1} K1 launches")
+    projection_launches = proj
     operand_launches = {}
     for (name, *_), (_, n_ops, _) in zip(cases, counts):
         operand_launches[name] = operand_launches.get(name, 0) + n_ops
@@ -1373,15 +1372,13 @@ def phase_k3_kernel(run):
     check(torch.equal(warp_corr.launch_projection(sp, rp),
                       warp_corr.projection_scalars(sp, rp)),
           "projection kernel (N = 4) differs from projection_scalars")
-    before = (warp_corr.pre_launches, warp_corr.bwd_launches,
-              warp_corr.operand_launches, warp_corr.projection_launches)
+    names = ("warp_corr.k3", "warp_corr.k2", "warp_corr.operands",
+             "warp_corr.projection")
+    before = [profiling.counter(n) for n in names]
     k3 = grads_of(lambda a, b: warp_corr.warp_corr(
         a, b, sp, rp, depth, 4, batch_rows=False), src, ref, g_out)
-    check((warp_corr.pre_launches - before[0],
-           warp_corr.bwd_launches - before[1],
-           warp_corr.operand_launches - before[2],
-           warp_corr.projection_launches - before[3]) == (1, 1, 1, 1),
-          "projection + operands + K3 forward + K2 backward")
+    check(tuple(profiling.counter(n) - b for n, b in zip(names, before))
+          == (1, 1, 1, 1), "projection + operands + K3 forward + K2 backward")
     k1 = grads_of(lambda a, b: warp_corr.warp_corr(
         a, b, sp, rp, depth, 4), src, ref, g_out)
     torch.cuda.synchronize()
@@ -1546,13 +1543,14 @@ def phase_export(run):
     finally:
         ms = {k: sp.close() for k, sp in spans.items()}
     infer_card, fuse_card = ms["infer_card"], ms["fuse_card"]
-    k1, by_shape = warp_corr.launches, dict(warp_corr.launches_by_shape)
+    k1 = profiling.counter("warp_corr.k1")
+    by_shape = dict(profiling.keyed("warp_corr.k1"))
     check(k1 == 28 * views, f"{k1} K1 launches for {views} views")
     check(sorted(by_shape.values()) == [views * 4, views * 12, views * 12],
           f"K1 by shape {by_shape}")
-    check(warp_corr.bwd_launches == warp_corr.pre_launches
-          == warp_corr.operand_launches == warp_corr.projection_launches
-          == 0, "only K1 on the export path")
+    check(not any(profiling.counter(f"warp_corr.{k}")
+                  for k in ("k2", "k3", "operands", "projection")),
+          "only K1 on the export path")
     exp = res["export"]
     check(exp["views"] == views and len(infer_card) == views,
           f"{exp['views']} views exported")
@@ -1761,13 +1759,15 @@ class StepMarks:
 
         def timed(*args, **kwargs):
             torch.cuda.synchronize()
-            k1, k2, t0 = (warp_corr.launches, warp_corr.bwd_launches,
-                          time.perf_counter())
+            k1 = profiling.counter("warp_corr.k1")
+            k2 = profiling.counter("warp_corr.k2")
+            t0 = time.perf_counter()
             out = self.fn(*args, **kwargs)
             torch.cuda.synchronize()
             self.steps.append(dict(
                 start=t0, end=time.perf_counter(), images_ms=0.0,
-                k1=warp_corr.launches - k1, k2=warp_corr.bwd_launches - k2))
+                k1=profiling.counter("warp_corr.k1") - k1,
+                k2=profiling.counter("warp_corr.k2") - k2))
             return out
 
         def save_images(*args, **kwargs):
@@ -1848,7 +1848,8 @@ def phase_train_cli(run):
     warp_corr.reset_counts()
     res1, steps1, rate1, gaps1, img1 = train_cli_run(
         base + ["--workers", "2", "--train_epochs", "1"], b)
-    k1_total, k2_total = warp_corr.launches, warp_corr.bwd_launches
+    k1_total = profiling.counter("warp_corr.k1")
+    k2_total = profiling.counter("warp_corr.k2")
     peak = torch.cuda.max_memory_allocated()
     check(len(steps1) == steps_per_epoch, f"{len(steps1)} steps in epoch 0")
     # 28 K1 launches per validation batch: 5 test views in batches of 4, 1
@@ -1983,7 +1984,8 @@ def phase_ddp(run):
                     ms=(time.perf_counter() - t0) * 1e3,
                     loss=float(scalars["loss"]),
                     grads=flat_grads(state.model),
-                    launches=(warp_corr.launches, warp_corr.bwd_launches),
+                    launches=(profiling.counter("warp_corr.k1"),
+                              profiling.counter("warp_corr.k2")),
                     stats=torch.cat([v.float().flatten() for k, v in
                                      state.model.state_dict().items()
                                      if "running_" in k])))
@@ -2083,11 +2085,11 @@ def sp_serve(space, dtype, gate, lead):
     out = dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                ms=statistics.mean(req_ms[1:]), req_ms=req_ms,
                collectives={k: v // 3 for k, v in calls.items()},
-               k1=warp_corr.launches,
+               k1=profiling.counter("warp_corr.k1"),
                k1_by_shape={str(k): v for k, v in
-                            warp_corr.launches_by_shape.items()})
-    check(warp_corr.launches == 28 * 3, f"{warp_corr.launches} K1 launches "
-          f"in 3 sharded requests")
+                            profiling.keyed("warp_corr.k1").items()})
+    k1 = profiling.counter("warp_corr.k1")
+    check(k1 == 28 * 3, f"{k1} K1 launches in 3 sharded requests")
     check(depth.shape == (1, hh, ww // 2), f"shard depth {depth.shape}")
     shard = space.shard(local.shape[3], depth.device)
     with torch.inference_mode():
@@ -2158,9 +2160,10 @@ def sp_train(space, lead):
             res.append(dict(
                 ms=(time.perf_counter() - t0) * 1e3,
                 loss=float(scalars["loss"]), grads=flat_grads(state.model),
-                launches=(warp_corr.launches, warp_corr.bwd_launches),
+                launches=(profiling.counter("warp_corr.k1"),
+                          profiling.counter("warp_corr.k2")),
                 k2_by_shape={str(k): v for k, v in
-                             warp_corr.bwd_launches_by_shape.items()},
+                             profiling.keyed("warp_corr.k2").items()},
                 stats=torch.cat([v.float().flatten() for k, v in
                                  state.model.state_dict().items()
                                  if "running_" in k])))
@@ -2198,12 +2201,12 @@ def sp_rank(rank, port, outdir):
     import torch.distributed as dist
 
     from diffmvs_tpu_torch.api import set_f32_precision
-    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.ops import native
     from diffmvs_tpu_torch.parallel.distributed import space_group
 
     torch.cuda.set_device(0)
     set_f32_precision()
-    warp_corr._load()
+    native.build()
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=2, rank=rank)
     try:
@@ -2352,7 +2355,7 @@ def dp_shard_rank(rank, port, outdir):
     import torch.distributed as dist
 
     from diffmvs_tpu_torch.api import set_f32_precision
-    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.ops import native, warp_corr
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
     from diffmvs_tpu_torch.parallel.distributed import (DataParallel,
                                                         SyncBatchNorm,
@@ -2363,7 +2366,7 @@ def dp_shard_rank(rank, port, outdir):
 
     torch.cuda.set_device(0)
     set_f32_precision()
-    warp_corr._load()
+    native.build()
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=2, rank=rank)
     try:
@@ -2392,7 +2395,8 @@ def dp_shard_rank(rank, port, outdir):
         scalars, _ = train_step(state, cfg, local, gen, dp=dp)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches = (warp_corr.launches, warp_corr.bwd_launches)
+        launches = (profiling.counter("warp_corr.k1"),
+                    profiling.counter("warp_corr.k2"))
         res = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated()
                / 2**30, "launches": launches, "loss": float(scalars["loss"]),
                "modules": jax_modules()}
@@ -2420,9 +2424,9 @@ def dp_shard_rank(rank, port, outdir):
                         fold_seed(5, r)))
                 torch.cuda.synchronize()
                 plain_ms.append((time.perf_counter() - t0) * 1e3)
-                check(warp_corr.launches == 0 and
-                      warp_corr.bwd_launches == 0, "no kernel on the plain "
-                      "per-shard path")
+                check(profiling.counter("warp_corr.k1")
+                      == profiling.counter("warp_corr.k2") == 0,
+                      "no kernel on the plain per-shard path")
                 shard_grads.append([p.grad.clone()
                                     for p in ref.model.parameters()])
                 shard_stats.append({k: v.clone() for k, v in
@@ -2778,12 +2782,11 @@ def main():
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.ops import native
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.time()
-    libs = warp_corr.build()
-    warp_corr._load()
+    libs = native.build()
     for name, lib in libs.items():
         ptxas = [l.strip() for l in (lib.parent / f"{name}.log").read_text()
                  .splitlines() if "registers" in l or "spill" in l]

@@ -301,6 +301,7 @@ def main(batch: int = 0, overrides: str = "", device: str = "cuda"):
     16 on the card, 1 on the CPU)."""
     from diffmvs_tpu_torch.api import DepthRunner, resolve_device
     from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.utils import profiling
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
     dev = resolve_device(device)
@@ -333,7 +334,7 @@ def main(batch: int = 0, overrides: str = "", device: str = "cuda"):
         "reps": shape.reps,
         **keys,
         "peak_gib": peak_gib(dev),
-        "k1_launches_per_forward": warp_corr.launches / n_fwd,
+        "k1_launches_per_forward": profiling.counter("warp_corr.k1") / n_fwd,
         "device": card_name(dev),
         **({"config": overrides} if overrides else {}),
     }), flush=True)
@@ -351,6 +352,7 @@ def bench_train(bwd: str = "", overrides: str = "", device: str = "cuda"):
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
     from diffmvs_tpu_torch.train.state import create_train_state
     from diffmvs_tpu_torch.train.step import batch_to_device
+    from diffmvs_tpu_torch.utils import profiling
 
     if bwd and bwd not in WARPS:
         raise ValueError(f"--bwd {bwd!r}: one of {WARPS} (bench.py's "
@@ -386,8 +388,8 @@ def bench_train(bwd: str = "", overrides: str = "", device: str = "cuda"):
         "reps": shape.reps,
         **keys,
         "peak_gib": peak_gib(dev),
-        "k1_launches_per_step": warp_corr.launches / steps,
-        "k2_launches_per_step": warp_corr.bwd_launches / steps,
+        "k1_launches_per_step": profiling.counter("warp_corr.k1") / steps,
+        "k2_launches_per_step": profiling.counter("warp_corr.k2") / steps,
         "device": card_name(dev),
         **({"config": overrides} if overrides else {}),
     }), flush=True)

@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from diffmvs_tpu_torch.nn.layers import Conv3d, Conv3dBnAct, Deconv3dBnAct
+from diffmvs_tpu_torch.nn.layers import (Conv3d, Conv3dBnAct, Deconv3dBnAct,
+                                         frozen)
 from diffmvs_tpu_torch.ops import view_weight
 
 
@@ -88,15 +89,9 @@ class PixelViewWeight(nn.Module):
         return torch.stack([self(c) for c in per_view])
 
     def fusable(self, cor_feats) -> bool:
-        """The kernel's conditions besides a CUDA volume: eval mode with
-        running statistics (the kernel applies BatchNorm from them),
-        autograd recording nothing, and the plain Conv3d (not a width
-        shard's SpaceConv3d)."""
+        """The kernel's conditions besides a CUDA volume: frozen (eval
+        mode with running statistics, autograd recording nothing) and the
+        plain Conv3d (not a width shard's SpaceConv3d)."""
         block, conv2 = self.conv
-        records = torch.is_grad_enabled() and (
-            cor_feats.requires_grad
-            or any(p.requires_grad for p in self.parameters()))
-        return (not any(m.training for m in self.modules()) and not records
-                and type(block.conv) is Conv3d and type(conv2) is Conv3d
-                and block.bn.running_mean is not None
-                and block.bn.running_var is not None)
+        return (frozen((self,), cor_feats) and type(block.conv) is Conv3d
+                and type(conv2) is Conv3d)

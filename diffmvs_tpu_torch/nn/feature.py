@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffmvs_tpu_torch.nn.layers import Conv2d, ConvBnAct
+from diffmvs_tpu_torch.nn.layers import Conv2d, ConvBnAct, frozen
 from diffmvs_tpu_torch.ops import feature_stem
 
 
@@ -76,24 +76,17 @@ class FeatureNet(nn.Module):
 
     def stem_fusable(self, x) -> bool:
         """The stem kernel's conditions besides a CUDA tensor: float32
-        images [N, 3, H, W]; eval mode with running statistics (the kernel
-        applies BatchNorm from them); autograd recording nothing; bf16
-        compute (a float32 stem would run on tensor cores in TF32, less
-        exact than the module's float32); the plain Conv2d (not a width
-        shard's SpaceConv2d) at the kernel's widths (base_channels 8).
-        Training, width shards, float32 and the CPU keep the module
-        chain."""
+        images [N, 3, H, W]; the stem frozen (eval mode with running
+        statistics, autograd recording nothing); bf16 compute (a float32
+        stem would run on tensor cores in TF32, less exact than the
+        module's float32); the plain Conv2d (not a width shard's
+        SpaceConv2d) at the kernel's widths (base_channels 8). Training,
+        width shards, float32 and the CPU keep the module chain."""
         stem = feature_stem.blocks(self)
-        records = torch.is_grad_enabled() and (
-            x.requires_grad
-            or any(p.requires_grad for b in stem for p in b.parameters()))
         return (x.dtype == torch.float32 and x.dim() == 4
-                and not any(m.training for b in stem for m in b.modules())
-                and not records
+                and frozen(stem, x)
                 and all(type(b.conv) is Conv2d
-                        and b.conv.compute_dtype == torch.bfloat16
-                        and b.bn.running_mean is not None
-                        and b.bn.running_var is not None and b.relu
+                        and b.conv.compute_dtype == torch.bfloat16 and b.relu
                         for b in stem)
                 and tuple(tuple(b.conv.weight.shape) for b in stem)
                 == feature_stem.SHAPES)

@@ -14,6 +14,11 @@ conv's output as it is: torch reduces a bfloat16 input's statistics and
 normalizes it in float32 against the float32 affine and running
 statistics, and rounds once to bfloat16 (flax's force_float32_reductions).
 
+Kernels: frozen() is the one rule for when a hand-written inference kernel
+(ops/) may stand in for a chain of these modules; the modules that route
+to one (nn/costreg.PixelViewWeight, nn/feature.FeatureNet) add only the
+kernel's own conditions.
+
 Width sharding (parallel/spatial.py): SpaceConv2d, SpaceConv3d and
 SpaceConvTranspose3d are the convolutions' forms on a shard of the width
 (the last dim), which spatial.shard_width swaps in, in place. Each takes
@@ -33,48 +38,43 @@ import torch.nn.functional as F
 from diffmvs_tpu_torch.parallel import spatial
 
 
-class Conv2d(nn.Conv2d):
+class _ComputeDtype:
+    """Mixin of the conv and linear layers: float32 parameters, computing
+    in `dtype` (compute_dtype)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def operands(self, x):
+        """(x, weight, bias) cast to compute_dtype; no bias stays None."""
+        dt = self.compute_dtype
+        return (x.to(dt), self.weight.to(dt),
+                None if self.bias is None else self.bias.to(dt))
+
+
+class Conv2d(_ComputeDtype, nn.Conv2d):
     """nn.Conv2d computing in `dtype` over float32 parameters."""
 
-    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.compute_dtype = dtype
-
     def forward(self, x):
-        dt = self.compute_dtype
-        return self._conv_forward(
-            x.to(dt), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt))
+        return self._conv_forward(*self.operands(x))
 
 
-class Conv3d(nn.Conv3d):
+class Conv3d(_ComputeDtype, nn.Conv3d):
     """nn.Conv3d computing in `dtype` over float32 parameters."""
 
-    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.compute_dtype = dtype
-
     def forward(self, x):
-        dt = self.compute_dtype
-        return self._conv_forward(
-            x.to(dt), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt))
+        return self._conv_forward(*self.operands(x))
 
 
-class ConvTranspose3d(nn.ConvTranspose3d):
+class ConvTranspose3d(_ComputeDtype, nn.ConvTranspose3d):
     """nn.ConvTranspose3d (no output_size argument) computing in `dtype`
     over float32 parameters."""
 
-    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.compute_dtype = dtype
-
     def forward(self, x):
-        dt = self.compute_dtype
         return F.conv_transpose3d(
-            x.to(dt), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt), self.stride,
-            self.padding, self.output_padding, self.groups, self.dilation)
+            *self.operands(x), self.stride, self.padding, self.output_padding,
+            self.groups, self.dilation)
 
 
 class _SpaceConv:
@@ -111,20 +111,14 @@ class SpaceConv2d(_SpaceConv, Conv2d):
     """Conv2d on a width shard."""
 
     def forward(self, x):
-        dt = self.compute_dtype
-        return self.halo_conv(
-            x.to(dt), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt))
+        return self.halo_conv(*self.operands(x))
 
 
 class SpaceConv3d(_SpaceConv, Conv3d):
     """Conv3d on a width shard."""
 
     def forward(self, x):
-        dt = self.compute_dtype
-        return self.halo_conv(
-            x.to(dt), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt))
+        return self.halo_conv(*self.operands(x))
 
 
 class SpaceConvTranspose3d(_SpaceConv, ConvTranspose3d):
@@ -136,28 +130,38 @@ class SpaceConvTranspose3d(_SpaceConv, ConvTranspose3d):
     the output is cropped to the shard's columns."""
 
     def forward(self, x):
-        dt = self.compute_dtype
         k, s, p = self.kernel_size[-1], self.stride[-1], self.padding[-1]
         w = x.shape[-1]
         left = (k - 1 - p) // s
         conv = (self.stride, self.padding[:-1] + (0,), self.dilation, True,
                 self.output_padding[:-1] + (0,), self.groups)
-        return spatial.halo_conv(
-            x.to(dt), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt), conv, left,
-            (p - 1) // s + 1, left * s + p, w * s, self.space)
+        return spatial.halo_conv(*self.operands(x), conv, left,
+                                 (p - 1) // s + 1, left * s + p, w * s,
+                                 self.space)
 
 
-class Linear(nn.Linear):
+class Linear(_ComputeDtype, nn.Linear):
     """nn.Linear computing in `dtype` over float32 parameters."""
 
-    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.compute_dtype = dtype
-
     def forward(self, x):
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(*self.operands(x))
+
+
+def frozen(modules, *inputs) -> bool:
+    """Whether a hand-written inference kernel may stand in for `modules`
+    on `inputs`: no submodule is training, every BatchNorm among them has
+    running statistics (the kernel applies BatchNorm from them), and
+    autograd would record nothing for the inputs or the parameters. The
+    kernel's own conditions (layer types, dtypes, shapes) are its
+    caller's."""
+    subs = [m for module in modules for m in module.modules()]
+    records = torch.is_grad_enabled() and (
+        any(x.requires_grad for x in inputs)
+        or any(p.requires_grad for m in modules for p in m.parameters()))
+    return (not records and not any(m.training for m in subs)
+            and all(m.running_mean is not None and m.running_var is not None
+                    for m in subs
+                    if isinstance(m, nn.modules.batchnorm._BatchNorm)))
 
 
 class ConvBnAct(nn.Module):

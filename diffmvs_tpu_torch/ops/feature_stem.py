@@ -16,18 +16,16 @@ channels-last strides the module's path gives it. Whether it runs is the
 module's decision (FeatureNet.stem_fusable): the kernel where it applies,
 else the module chain itself, which is also its plain version.
 
-Build: the source is one of ops/warp_corr.SOURCES, compiled with the
-warp kernels by warp_corr.build() on the first CUDA call and loaded with
-ctypes; nothing is built or loaded when this module is imported.
+Build: native.build() finds the source in ops/csrc/ and compiles it on the
+first CUDA call, and native.function() loads it; nothing is built or
+loaded when this module is imported.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from diffmvs_tpu_torch.ops import warp_corr
+from diffmvs_tpu_torch.ops import native
 from diffmvs_tpu_torch.utils import profiling
 
 # launches of the kernel, in the port's registry (utils/profiling.py), also
@@ -35,7 +33,8 @@ from diffmvs_tpu_torch.utils import profiling
 COUNTER = "feature_stem.fused"
 # the conv weights of conv0[0], conv0[1] and conv1[0] the kernel is built for
 SHAPES = ((8, 3, 3, 3), (8, 8, 3, 3), (16, 8, 5, 5))
-_lib = None
+_KERNEL = ("feature_stem", "feature_stem_forward",
+           "p" * 16 + "fff" + "p" + "iii")
 
 
 def blocks(net):
@@ -50,18 +49,6 @@ def params(net):
                   b.bn.weight, b.bn.bias, b.bn.eps) for b in blocks(net))
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(warp_corr.build()["feature_stem"]))
-        lib.feature_stem_forward.argtypes = (
-            [ctypes.c_void_p] * 16 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.feature_stem_forward.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def stem(x, layers):
     """The kernel: one launch for the N images (CUDA tensors only).
 
@@ -74,7 +61,7 @@ def stem(x, layers):
         raise ValueError(f"feature_stem: expected images [N, 3, H, W], got "
                          f"{tuple(x.shape)}")
     tensors = [t for layer in layers for t in layer[:5]]
-    dev = warp_corr._check_cuda("feature_stem", tensors)
+    dev = native.device("feature_stem", tensors)
     if x.device != dev:
         raise ValueError("feature_stem: all tensors must be on one CUDA "
                          "device")
@@ -98,16 +85,10 @@ def stem(x, layers):
                          f"or exceed the kernel's limits (2^31 tiles)")
     out = torch.empty((n, ho, wo, 16), dtype=torch.bfloat16,
                       device=dev).permute(0, 3, 1, 2)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.feature_stem_forward(
-            x.data_ptr(), *(layer[0].data_ptr() for layer in layers),
-            *(t.data_ptr() for layer in layers for t in layer[1:5]),
-            *(float(layer[5]) for layer in layers), out.data_ptr(), n, h, w,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"feature_stem: kernel launch failed, cudaError "
-                           f"{err}")
+    native.launch(
+        "feature_stem", native.function(*_KERNEL), dev, x.data_ptr(),
+        *(layer[0].data_ptr() for layer in layers),
+        *(t.data_ptr() for layer in layers for t in layer[1:5]),
+        *(float(layer[5]) for layer in layers), out.data_ptr(), n, h, w)
     profiling.count(COUNTER, key=(n, h, w))
     return out

@@ -16,26 +16,24 @@ it runs is the module's decision (PixelViewWeight.views): the kernel
 where it applies, else the module itself, view by view, which is also
 its plain version.
 
-Build: the source is one of ops/warp_corr.SOURCES, compiled with the
-warp kernels by warp_corr.build() on the first CUDA call and loaded with
-ctypes; nothing is built or loaded when this module is imported.
+Build: native.build() finds the source in ops/csrc/ and compiles it on the
+first CUDA call, and native.function() loads it; nothing is built or
+loaded when this module is imported.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from diffmvs_tpu_torch.ops import warp_corr
+from diffmvs_tpu_torch.ops import native
 from diffmvs_tpu_torch.utils import profiling
 
 # launches of the kernel, in the port's registry (utils/profiling.py), also
 # by (V-1, B, D, H, W, G)
 COUNTER = "pixel_view_weight.fused"
 GROUPS = (4, 8)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_KERNEL = ("pixel_view_weight", "pixel_view_weight_forward",
+           "ii" + "p" * 6 + "f" + "p" * 3 + "iiii")
 
 
 def weights(module):
@@ -45,18 +43,6 @@ def weights(module):
     bn = block.bn
     return (block.conv.weight, bn.running_mean, bn.running_var, bn.weight,
             bn.bias, bn.eps, conv2.weight, conv2.bias)
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(warp_corr.build()["pixel_view_weight"]))
-        lib.pixel_view_weight_forward.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_float]
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.pixel_view_weight_forward.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def view_weights(cor_feats, w1, mean, var, gamma, beta, eps, w2, b2):
@@ -71,11 +57,11 @@ def view_weights(cor_feats, w1, mean, var, gamma, beta, eps, w2, b2):
                          f"got {tuple(cor_feats.shape)}")
     v, b, d, h, w, g = cor_feats.shape
     params = (w1, mean, var, gamma, beta, w2, b2)
-    dev = warp_corr._check_cuda("pixel_view_weight", (cor_feats, *params))
+    dev = native.device("pixel_view_weight", (cor_feats, *params))
     if g not in GROUPS:
         raise ValueError(f"pixel_view_weight: the kernel takes G in {GROUPS}, "
                          f"got {g}")
-    if cor_feats.dtype not in _DTYPE_CODE:
+    if cor_feats.dtype not in native.DTYPE_CODE:
         raise TypeError(f"pixel_view_weight: the volume must be float32 or "
                         f"bfloat16, got {cor_feats.dtype}")
     if any(t.dtype != torch.float32 for t in params):
@@ -96,17 +82,12 @@ def view_weights(cor_feats, w1, mean, var, gamma, beta, eps, w2, b2):
         raise ValueError("pixel_view_weight: the volume must be 16-byte "
                          "aligned")
     out = torch.empty((v, b, h, w), dtype=torch.float32, device=dev)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pixel_view_weight_forward(
-            _DTYPE_CODE[cor_feats.dtype], g, cor_feats.data_ptr(),
-            w1.data_ptr(), mean.data_ptr(), var.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), float(eps), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), v * b, d, h, w, stream)
-    if err != 0:
-        raise RuntimeError(f"pixel_view_weight: kernel launch failed, "
-                           f"cudaError {err}")
+    native.launch(
+        "pixel_view_weight", native.function(*_KERNEL), dev,
+        native.DTYPE_CODE[cor_feats.dtype], g, cor_feats.data_ptr(),
+        w1.data_ptr(), mean.data_ptr(), var.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), float(eps), w2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), v * b, d, h, w)
     profiling.count(COUNTER, key=(v, b, d, h, w, g))
     return out
 

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the fused plane-sweep warp + group
 correlation: the forward (K1), its backward (K2), the forward from
-precomputed corner operands (K3), their build and their binding, and the
-autograd Functions that join them.
+precomputed corner operands (K3), their launches, and the autograd
+Functions that join them.
 
 Counterparts of the TPU kernels `_corr_kernel_rowbatch`, `_corr_kernel`
 (diffmvs_tpu/ops/pallas/warp_corr.py) and `_bwd_kernel`
@@ -22,12 +22,9 @@ Two modes, as warp_corr_pallas(..., batch_rows=...) has them:
     (projection_scalars, corner_operands_rt and
     ops/correlation.corner_correlate_plain).
 
-Build: on the first CUDA call, nvcc compiles each .cu file into a shared
-library with a plain C interface under <repo>/build/diffmvs_tpu_torch/
-(one nvcc process per source, started together), keyed by a hash of the
-sources and the flags, and ctypes loads them. Nothing is built or loaded
-when this module is imported, so it imports on hosts without nvcc or a
-card.
+Build: ops/native.py compiles the sources and loads them on the first
+CUDA call; nothing is built or loaded when this module is imported, so it
+imports on hosts without nvcc or a card.
 
 Width shards (parallel/spatial.py): K1 and K2 take the column offset
 x_off of ref's first column; the depths, ref, the output and d_ref are
@@ -45,161 +42,31 @@ gradients in the features' dtype.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-
 import torch
 
 from diffmvs_tpu_torch.geometry.transforms import relative_projection
 from diffmvs_tpu_torch.geometry.warp import plane_sweep_coords
+from diffmvs_tpu_torch.ops import native
+# the benchmark's set-up and tools/kernel_times.py (which also times older
+# trees) build the kernels through this name
+from diffmvs_tpu_torch.ops.native import build  # noqa: F401
 from diffmvs_tpu_torch.utils import profiling
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"warp_corr": CSRC / "warp_corr.cu",          # K1
-           "warp_corr_bwd": CSRC / "warp_corr_bwd.cu",  # K2
-           "warp_corr_pre": CSRC / "warp_corr_pre.cu",  # K3
-           # PixelViewWeight's conv stack (ops/view_weight.py)
-           "pixel_view_weight": CSRC / "pixel_view_weight.cu",
-           # FeatureNet's full-resolution stem (ops/feature_stem.py)
-           "feature_stem": CSRC / "feature_stem.cu"}
-HEADERS = (CSRC / "warp_geom.cuh",)
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "diffmvs_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-# launch counters, kept in the port's registry (utils/profiling.py) and
-# credited to the span that launched: warp_corr.k1 counts every K1 launch,
-# .k2 every K2 launch, .k3 every K3 launch, .operands and .projection every
-# launch of K3's operand and projection kernels; K1, K2 and K3 also by
-# (D, H, W, C) shape. The module's old names read them (__getattr__).
-COUNTERS = {"launches": "warp_corr.k1", "bwd_launches": "warp_corr.k2",
-            "pre_launches": "warp_corr.k3",
-            "operand_launches": "warp_corr.operands",
-            "projection_launches": "warp_corr.projection"}
-BY_SHAPE = {"launches_by_shape": "warp_corr.k1",
-            "bwd_launches_by_shape": "warp_corr.k2",
-            "pre_launches_by_shape": "warp_corr.k3"}
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
-_bwd_lib = None
-_pre_lib = None
+# the entry points: (library, symbol, argument codes of native.function)
+_K1 = ("warp_corr", "warp_corr_forward", "i" + "p" * 5 + "i" * 9)
+_K2 = ("warp_corr_bwd", "warp_corr_backward", "i" + "p" * 7 + "i" * 9)
+_K3 = ("warp_corr_pre", "warp_corr_pre_forward", "i" + "p" * 8 + "i" * 8)
+_OPERANDS = ("warp_corr_pre", "warp_corr_operands", "p" * 7 + "i" * 6)
+_PROJECTION = ("warp_corr_pre", "warp_corr_projection", "pppi")
 
 
 def reset_counts():
+    """Zero the launch counters, kept in the port's registry
+    (utils/profiling.py) and credited to the span that launched:
+    warp_corr.k1 counts every K1 launch, .k2 every K2 launch, .k3 every K3
+    launch, .operands and .projection every launch of K3's operand and
+    projection kernels; K1, K2 and K3 also by (D, H, W, C) shape."""
     profiling.reset_counters("warp_corr.")
-
-
-def __getattr__(name):
-    """launches, bwd_launches, ... (totals) and launches_by_shape,
-    bwd_launches_by_shape, pre_launches_by_shape (Counters), read from the
-    registry."""
-    if name in COUNTERS:
-        return profiling.counter(COUNTERS[name])
-    if name in BY_SHAPE:
-        return profiling.keyed(BY_SHAPE[name])
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def nvcc_path() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("warp_corr: nvcc not found (set CUDA_HOME)")
-    return found
-
-
-def build() -> dict:
-    """Compile the kernels that this source + flags has no library for yet.
-
-    Returns {name: path of the shared library}. The nvcc processes run
-    side by side; each one's -Xptxas -v report (registers, spills) is kept
-    beside its library as <name>.log. Runs in a "warp_corr.build" span,
-    counting the libraries compiled (build.compiled) and found built
-    (build.found).
-    """
-    with profiling.span("warp_corr.build"):
-        return _build()
-
-
-def _build() -> dict:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in (*SOURCES.values(), *HEADERS):
-        digest.update(path.name.encode() + path.read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
-    libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
-    todo = [name for name, lib in libs.items() if not lib.exists()]
-    profiling.count("build.found", len(libs) - len(todo))
-    profiling.count("build.compiled", len(todo))
-    if not todo:
-        return libs
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
-    for name in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        (out_dir / f"{name}.log").write_text(log)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name} ({proc.returncode}):\n{log[-4000:]}")
-        else:
-            os.replace(tmp, libs[name])   # atomic when two processes build
-    if failed:
-        raise RuntimeError("warp_corr: nvcc failed: " + "\n".join(failed))
-    return libs
-
-
-def _load():
-    """(K1, K2) libraries; K3's comes from _load_pre(). Builds every
-    source of SOURCES."""
-    global _lib, _bwd_lib
-    if _lib is None:
-        libs = build()
-        fwd = ctypes.CDLL(str(libs["warp_corr"]))
-        fwd.warp_corr_forward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-            + [ctypes.c_void_p])
-        fwd.warp_corr_forward.restype = ctypes.c_int
-        bwd = ctypes.CDLL(str(libs["warp_corr_bwd"]))
-        bwd.warp_corr_backward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-            + [ctypes.c_void_p])
-        bwd.warp_corr_backward.restype = ctypes.c_int
-        _lib, _bwd_lib = fwd, bwd
-    return _lib, _bwd_lib
-
-
-def _load_pre():
-    global _pre_lib
-    if _pre_lib is None:
-        lib = ctypes.CDLL(str(build()["warp_corr_pre"]))
-        lib.warp_corr_pre_forward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-            + [ctypes.c_void_p])
-        lib.warp_corr_pre_forward.restype = ctypes.c_int
-        lib.warp_corr_operands.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.warp_corr_operands.restype = ctypes.c_int
-        lib.warp_corr_projection.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
-        lib.warp_corr_projection.restype = ctypes.c_int
-        _pre_lib = lib
-    return _pre_lib
 
 
 def projection_scalars(src_pair, ref_pair):
@@ -271,22 +138,10 @@ class WarpCorr(torch.autograd.Function):
                 None, None, None, None)
 
 
-def _check_cuda(what, tensors):
-    """The device of tensors: one CUDA device of compute capability 9.0,
-    every tensor contiguous; raises otherwise."""
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"{what}: all tensors must be on one CUDA device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{what}: inputs must be contiguous")
-    if torch.cuda.get_device_capability(dev) != (9, 0):
-        raise RuntimeError(f"{what}: built for sm_90a (H100/H200) only")
-    return dev
-
-
 def _check_forward(src_fea, ref_fea, rt, depth_values, groups, x_off=0):
-    _check_cuda("warp_corr", (src_fea, ref_fea, rt, depth_values))
-    if src_fea.dtype not in _DTYPE_CODE or ref_fea.dtype != src_fea.dtype:
+    native.device("warp_corr", (src_fea, ref_fea, rt, depth_values))
+    if (src_fea.dtype not in native.DTYPE_CODE
+            or ref_fea.dtype != src_fea.dtype):
         raise TypeError(f"warp_corr: features must both be float32 or "
                         f"bfloat16, got {src_fea.dtype}/{ref_fea.dtype}")
     if depth_values.dtype != torch.float32 or rt.dtype != torch.float32:
@@ -320,16 +175,12 @@ def _launch_forward(src_fea, ref_fea, rt, depth_values, groups, x_off=0):
     n, hs, ws, c = src_fea.shape
     _, d, h, w = depth_values.shape
     dev = src_fea.device
-    lib, _ = _load()
     out = torch.empty((n, groups, d, h, w), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.warp_corr_forward(
-            _DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
-            ref_fea.data_ptr(), depth_values.data_ptr(), rt.data_ptr(),
-            out.data_ptr(), n, d, h, w, hs, ws, c, groups, x_off, stream)
-    if err != 0:
-        raise RuntimeError(f"warp_corr: kernel launch failed, cudaError {err}")
+    native.launch(
+        "warp_corr", native.function(*_K1), dev,
+        native.DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
+        ref_fea.data_ptr(), depth_values.data_ptr(), rt.data_ptr(),
+        out.data_ptr(), n, d, h, w, hs, ws, c, groups, x_off)
     profiling.count("warp_corr.k1", key=(d, h, w, c))
     return out
 
@@ -359,19 +210,14 @@ def warp_corr_backward(src_fea, ref_fea, rt, depth_values, g, groups,
         raise ValueError(f"warp_corr_backward: cotangent {tuple(g.shape)} "
                          f"must be a contiguous [N, G, D, H, W] = "
                          f"{(n, groups, d, h, w)} tensor on {dev}")
-    _, lib = _load()
     d_src = torch.zeros(src_fea.shape, dtype=torch.float32, device=dev)
     d_ref = torch.empty_like(ref_fea)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.warp_corr_backward(
-            _DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
-            ref_fea.data_ptr(), depth_values.data_ptr(), rt.data_ptr(),
-            g.data_ptr(), d_src.data_ptr(), d_ref.data_ptr(), n, d, h, w, hs,
-            ws, c, groups, x_off, stream)
-    if err != 0:
-        raise RuntimeError(f"warp_corr_backward: kernel launch failed, "
-                           f"cudaError {err}")
+    native.launch(
+        "warp_corr_backward", native.function(*_K2), dev,
+        native.DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
+        ref_fea.data_ptr(), depth_values.data_ptr(), rt.data_ptr(),
+        g.data_ptr(), d_src.data_ptr(), d_ref.data_ptr(), n, d, h, w, hs, ws,
+        c, groups, x_off)
     profiling.count("warp_corr.k2", key=(d, h, w, c))
     return d_src.to(src_fea.dtype), d_ref
 
@@ -473,22 +319,16 @@ def launch_projection(src_pair, ref_pair):
     src_pair/ref_pair [N, 2, 4, 4]."""
     src_pair = src_pair.float().contiguous()
     ref_pair = ref_pair.float().contiguous()
-    dev = _check_cuda("warp_corr_projection", (src_pair, ref_pair))
+    dev = native.device("warp_corr_projection", (src_pair, ref_pair))
     if (src_pair.dim() != 4 or tuple(src_pair.shape[1:]) != (2, 4, 4)
             or tuple(ref_pair.shape) != tuple(src_pair.shape)):
         raise ValueError(f"warp_corr_projection: pairs "
                          f"{tuple(src_pair.shape)} / {tuple(ref_pair.shape)}"
                          f" are not [N, 2, 4, 4]")
     n = src_pair.shape[0]
-    lib = _load_pre()
     rt = torch.empty((n, 12), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.warp_corr_projection(
-            src_pair.data_ptr(), ref_pair.data_ptr(), rt.data_ptr(), n,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"warp_corr_projection: kernel launch failed, "
-                           f"cudaError {err}")
+    native.launch("warp_corr_projection", native.function(*_PROJECTION), dev,
+                  src_pair.data_ptr(), ref_pair.data_ptr(), rt.data_ptr(), n)
     profiling.count("warp_corr.projection")
     return rt
 
@@ -497,7 +337,7 @@ def launch_operands(rt, depth_values, hs, ws):
     """The operand kernel (CUDA tensors only): (xi, yi, fx, fy, valid) as
     corner_operands_rt gives them, from rt [N, 12] and depth_values
     [N, D, H, W], contiguous float32, for a source image of hs x ws."""
-    dev = _check_cuda("warp_corr_operands", (depth_values, rt))
+    dev = native.device("warp_corr_operands", (depth_values, rt))
     if depth_values.dtype != torch.float32 or rt.dtype != torch.float32:
         raise TypeError("warp_corr_operands: depth_values and rt must be "
                         "float32")
@@ -508,21 +348,15 @@ def launch_operands(rt, depth_values, hs, ws):
         raise ValueError(f"warp_corr_operands: rt {tuple(rt.shape)} for "
                          f"depths {tuple(depth_values.shape)}, source "
                          f"{hs}x{ws}")
-    lib = _load_pre()
     xi = torch.empty((n, d, h, w), dtype=torch.int32, device=dev)
     yi = torch.empty_like(xi)
     fx = torch.empty((n, d, h, w), dtype=torch.float32, device=dev)
     fy = torch.empty_like(fx)
     valid = torch.empty((n, d, h, w), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.warp_corr_operands(
-            depth_values.data_ptr(), rt.data_ptr(), xi.data_ptr(),
-            yi.data_ptr(), fx.data_ptr(), fy.data_ptr(), valid.data_ptr(), n,
-            d, h, w, hs, ws, stream)
-    if err != 0:
-        raise RuntimeError(f"warp_corr_operands: kernel launch failed, "
-                           f"cudaError {err}")
+    native.launch("warp_corr_operands", native.function(*_OPERANDS), dev,
+                  depth_values.data_ptr(), rt.data_ptr(), xi.data_ptr(),
+                  yi.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+                  valid.data_ptr(), n, d, h, w, hs, ws)
     profiling.count("warp_corr.operands")
     return xi, yi, fx, fy, valid
 
@@ -536,8 +370,9 @@ def launch_pre(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
     bool, each contiguous [N, D, H, W], as corner_split gives them.
     """
     operands = (xi, yi, fx, fy, valid)
-    dev = _check_cuda("warp_corr_pre", (src_fea, ref_fea) + operands)
-    if src_fea.dtype not in _DTYPE_CODE or ref_fea.dtype != src_fea.dtype:
+    dev = native.device("warp_corr_pre", (src_fea, ref_fea) + operands)
+    if (src_fea.dtype not in native.DTYPE_CODE
+            or ref_fea.dtype != src_fea.dtype):
         raise TypeError(f"warp_corr_pre: features must both be float32 or "
                         f"bfloat16, got {src_fea.dtype}/{ref_fea.dtype}")
     want = (torch.int32, torch.int32, torch.float32, torch.float32,
@@ -557,17 +392,12 @@ def launch_pre(src_fea, ref_fea, xi, yi, fx, fy, valid, groups):
     if groups <= 0 or c % groups != 0 or hs == 0 or ws == 0:
         raise ValueError(f"warp_corr_pre: C={c} not divisible by G={groups} "
                          f"or empty source")
-    lib = _load_pre()
     out = torch.empty((n, groups, d, h, w), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.warp_corr_pre_forward(
-            _DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
-            ref_fea.data_ptr(), xi.data_ptr(), yi.data_ptr(), fx.data_ptr(),
-            fy.data_ptr(), valid.data_ptr(), out.data_ptr(), n, d, h, w, hs,
-            ws, c, groups, stream)
-    if err != 0:
-        raise RuntimeError(f"warp_corr_pre: kernel launch failed, cudaError "
-                           f"{err}")
+    native.launch(
+        "warp_corr_pre", native.function(*_K3), dev,
+        native.DTYPE_CODE[src_fea.dtype], src_fea.data_ptr(),
+        ref_fea.data_ptr(), xi.data_ptr(), yi.data_ptr(), fx.data_ptr(),
+        fy.data_ptr(), valid.data_ptr(), out.data_ptr(), n, d, h, w, hs, ws,
+        c, groups)
     profiling.count("warp_corr.k3", key=(d, h, w, c))
     return out

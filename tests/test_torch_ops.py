@@ -12,6 +12,7 @@ the CPU (the port's plain paths). Tolerances:
     orders and sum orders differ only in rounding.
 """
 
+import ast
 import math
 import os
 import subprocess
@@ -34,8 +35,9 @@ from diffmvs_tpu.ops.pallas.warp_corr import (_corner_split,
                                               warp_corr_pallas)
 
 from diffmvs_tpu_torch.geometry import sampling, transforms, upsample, warp
-from diffmvs_tpu_torch.ops import correlation, softargmax, warp_corr
+from diffmvs_tpu_torch.ops import correlation, native, softargmax, warp_corr
 from diffmvs_tpu_torch.tools import kernel_times
+from diffmvs_tpu_torch.utils import profiling
 
 from helpers import make_cams, stage_projs
 
@@ -187,12 +189,12 @@ def test_warp_and_correlate_takes_plain_path_on_cpu(rng, monkeypatch):
         raise AssertionError("kernel called for CPU tensors")
 
     monkeypatch.setattr(warp_corr, "warp_corr", no_kernel)
-    before = warp_corr.launches
+    before = profiling.counter("warp_corr.k1")
     args = (T(src), T(ref), T(sp), T(rp), T(depths), 4)
     got = correlation.warp_and_correlate(*args)
     want = correlation.warp_and_correlate_plain(*args)
     assert torch.equal(got, want)
-    assert warp_corr.launches == before
+    assert profiling.counter("warp_corr.k1") == before
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(rng):
@@ -202,38 +204,83 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
 
 
 def test_kernel_module_imports_without_nvcc():
-    """Importing the kernel module builds nothing: the libraries are built
-    and loaded on the first CUDA call only."""
-    code = ("import diffmvs_tpu_torch.ops.warp_corr as w; "
-            "assert w._lib is None and w._bwd_lib is None; "
-            "assert w._pre_lib is None; "
-            "assert w.launches == w.bwd_launches == w.pre_launches == 0; "
-            "assert w.operand_launches == w.projection_launches == 0; "
-            "assert all(p.exists() for p in w.SOURCES.values()); "
-            "assert all(p.exists() for p in w.HEADERS)")
+    """Importing the kernel modules builds and loads nothing: native builds
+    the libraries and loads them on the first CUDA call only."""
+    code = ("from diffmvs_tpu_torch.ops import (feature_stem, native, "
+            "view_weight, warp_corr); "
+            "from diffmvs_tpu_torch.utils import profiling; "
+            "assert native._built is None; "
+            "assert native._libs == {} and native._bound == {}; "
+            "names = ('warp_corr.k1', 'warp_corr.k2', 'warp_corr.k3', "
+            "'warp_corr.operands', 'warp_corr.projection', "
+            "view_weight.COUNTER, feature_stem.COUNTER, 'build.compiled', "
+            "'build.found'); "
+            "assert all(profiling.counter(n) == 0 for n in names); "
+            "srcs = native.sources(); "
+            "assert {'feature_stem', 'pixel_view_weight', 'warp_corr', "
+            "'warp_corr_bwd', 'warp_corr_pre'} <= set(srcs); "
+            "assert all(p.is_file() for p in "
+            "(*srcs.values(), *native.headers())); "
+            "assert 'warp_geom.cuh' in [p.name for p in native.headers()]")
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=os.path.dirname(os.path.dirname(__file__)))
 
 
 @pytest.mark.parametrize("name", sorted(
-    p.name for p in warp_corr.CSRC.iterdir() if p.suffix in (".cu", ".cuh")))
+    p.name for p in native.CSRC.iterdir() if p.suffix in (".cu", ".cuh")))
 def test_build_key_covers_every_include(name):
-    """build() keys its cache on SOURCES and HEADERS: every file under
-    ops/csrc/ is one of them, and every local header a file includes is
-    in HEADERS, so an edit to it rebuilds the kernels. The warp kernels'
-    sources (K1, K2, K3) include the coordinate code they share;
-    PixelViewWeight's kernel shares none."""
-    path = warp_corr.CSRC / name
-    keyed = {p.name for p in (*warp_corr.SOURCES.values(),
-                              *warp_corr.HEADERS)}
+    """native.build() keys its cache on every source and header of
+    ops/csrc/: each file there is one of them, and every local header a
+    file includes is a header of the key, so an edit to it rebuilds the
+    kernels. The warp kernels' sources (K1, K2, K3) include the coordinate
+    code they share; the other kernels share none."""
+    path = native.CSRC / name
+    keyed = {p.name for p in (*native.sources().values(), *native.headers())}
     assert name in keyed
     includes = [line.split('"')[1] for line in path.read_text().splitlines()
                 if line.strip().startswith("#include \"")]
-    headers = {p.name for p in warp_corr.HEADERS}
+    headers = {p.name for p in native.headers()}
     assert all(inc in headers for inc in includes), (name, includes)
     if path.suffix == ".cu" and name.startswith("warp_corr"):
         assert "warp_geom.cuh" in includes, f"{name} includes no shared header"
+
+
+@pytest.mark.parametrize("module", sorted(
+    p.name for p in native.CSRC.parent.glob("*.py")))
+def test_only_native_binds_kernels(module):
+    """Only ops/native.py imports ctypes, calls CDLL or calls build(); no
+    module of ops/ reads another ops module's private names."""
+    tree = ast.parse((native.CSRC.parent / module).read_text())
+    ops_names = {a.asname or a.name for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom)
+                 and n.module == "diffmvs_tpu_torch.ops" for a in n.names}
+    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names} | {
+        n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    called = {n.func.id if isinstance(n.func, ast.Name) else n.func.attr
+              for n in ast.walk(tree) if isinstance(n, ast.Call)
+              and isinstance(n.func, (ast.Name, ast.Attribute))}
+    private = [f"{n.value.id}.{n.attr}" for n in ast.walk(tree)
+               if isinstance(n, ast.Attribute)
+               and isinstance(n.value, ast.Name) and n.value.id in ops_names
+               and n.attr.startswith("_") and not n.attr.startswith("__")]
+    if module == "native.py":
+        assert "ctypes" in imported and {"CDLL", "_build"} <= called
+        return
+    assert "ctypes" not in imported
+    assert not {"CDLL", "build"} & called
+    assert not private, private
+
+
+@pytest.mark.parametrize("devices", [("cpu",), ("cpu", "meta")],
+                         ids=["cpu", "cpu_meta"])
+def test_native_device_refuses(devices):
+    """native.device() takes tensors on one CUDA device only and names the
+    kernel when it refuses."""
+    tensors = [torch.zeros(2, device=d) for d in devices]
+    with pytest.raises(ValueError, match="^some_kernel: .*one CUDA device"):
+        native.device("some_kernel", tensors)
 
 
 @pytest.mark.parametrize("case", ["refine", "sweep"])
@@ -370,13 +417,13 @@ def test_k3_mode_takes_plain_path_on_cpu(rng, monkeypatch):
 
     monkeypatch.setattr(warp_corr, "launch_pre", no_kernel)
     monkeypatch.setattr(warp_corr, "warp_corr_rt", no_kernel)
-    before = warp_corr.pre_launches
+    before = profiling.counter("warp_corr.k3")
     got = warp_corr.warp_corr(T(src), T(ref), T(sp), T(rp), T(depths), 4,
                               batch_rows=False)
     ops = warp_corr.corner_operands(T(src), T(sp), T(rp), T(depths))
     want = correlation.corner_correlate_plain(T(src), T(ref), *ops, 4)
     assert torch.equal(got, want)
-    assert warp_corr.pre_launches == before
+    assert profiling.counter("warp_corr.k3") == before
 
 
 def test_k3_mode_takes_bf16_at_odd_channels_per_group(rng):

@@ -54,7 +54,7 @@ from diffmvs_tpu_torch.train.state import (TrainState, create_train_state,
 from diffmvs_tpu_torch.train.step import (batch_to_device,
                                           compute_gradients, train_step)
 from diffmvs_tpu_torch.utils import metrics as tmetrics
-from diffmvs_tpu_torch.utils import summaries
+from diffmvs_tpu_torch.utils import profiling, summaries
 from diffmvs_tpu_torch.utils.synthetic import (synthetic_train_batch,
                                                synthetic_train_overrides)
 
@@ -256,7 +256,7 @@ def test_backward_kernel_wrapper_refuses_cpu_tensors(rng):
     with pytest.raises(ValueError, match="CUDA"):
         warp_corr.warp_corr(T(src).requires_grad_(), T(ref), T(sp), T(rp),
                             T(depths), 4)
-    assert warp_corr.bwd_launches == 0
+    assert profiling.counter("warp_corr.k2") == 0
 
 
 # ---------------------------------------------------------------------------
