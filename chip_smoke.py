@@ -6,12 +6,13 @@ Phases (one line each; any failure exits non-zero):
   1. device       -- needs CUDA; prints the card's name and power limit;
                      TF32 off
   2. build        -- ops/native.py compiles every source of ops/csrc/ with
-                     nvcc, side by side, five today: K1
+                     nvcc, side by side, six today: K1
                      (ops/csrc/warp_corr.cu), K2 (warp_corr_bwd.cu),
                      K3 with its operand and projection kernels
                      (warp_corr_pre.cu), PixelViewWeight's
-                     (pixel_view_weight.cu) and FeatureNet's stem
-                     (feature_stem.cu)
+                     (pixel_view_weight.cu), FeatureNet's stem
+                     (feature_stem.cu) and CostRegNet's prob layer
+                     (cost_prob.cu)
   3. jax_ckpt     -- the JAX package's orbax checkpoints with no JAX on the
                      machine: tests/data/orbax_state/ (a toy train state
                      saved by its save_checkpoint, and arrays orbax split
@@ -51,6 +52,15 @@ Phases (one line each; any failure exits non-zero):
                      strides; times, the bytes bound, the chain's ms; then
                      ragged and odd sizes, and one launch through
                      FeatureNet.forward (none in training mode)
+  4d. cost_prob_kernel -- CostRegNet's prob kernel (ops/cost_prob.py: the
+                     8 -> 1 3x3x3 conv) against the module's cuDNN conv at
+                     the sweep's shape (D = 48, 144x200) for B = 16 and
+                     B = 1, bf16 and f32 (kernel_times.time_prob): bf16
+                     within one bf16 ulp, f32 within 1e-5; times, the
+                     bound, the module's ms; then odd shapes (one plane,
+                     ragged tiles, D = 96, a contiguous NCDHW input), and
+                     one launch through CostRegNet.forward (none in
+                     training mode)
   5. train_kernel -- K2 against autograd of the plain version at the
                      training shapes (B=4 at 512x640: the sweep and the two
                      refinement stages) with degenerate depths, f32 and
@@ -215,6 +225,12 @@ PVW_TOL = 1e-5
 # tiles of 18 x 30), one plane, G = 8
 PVW_ODD = ((2, 2, 5, 7, 13, 4), (2, 1, 5, 19, 37, 4), (1, 1, 1, 9, 31, 4),
            (2, 1, 6, 19, 37, 8))
+# CostRegNet's prob kernel against the module: float32 within this; bf16
+# within one bf16 ulp (kernel_times.prob_errors)
+PROB_F32_TOL = 1e-5
+# (B, D, H, W) of the prob kernel's odd cases: one plane, ragged tiles
+# (output tiles of 16 x 30), the Tanks presets' 96 planes at B = 2
+PROB_ODD = ((1, 1, 9, 31), (2, 5, 25, 61), (1, 7, 1, 1), (2, 96, 33, 40))
 # FeatureNet's stem kernel against the float32 chain: at most this times
 # the bf16 module chain's own max and mean abs error
 STEM_ERR_RATIO = 1.5
@@ -508,6 +524,64 @@ def phase_stem_kernel(run):
         launches_eval_train=repr(counts))
 
 
+def prob_ok(r, dtype):
+    """The prob kernel's errors within the bound of its dtype."""
+    if dtype == torch.float32:
+        return r["max_abs_err"] <= PROB_F32_TOL
+    return r["max_ulp_err"] <= 1.0
+
+
+def phase_cost_prob_kernel(run):
+    """CostRegNet's prob kernel against the module's convolution at the
+    sweep's shape (kernel_times.time_prob) and at odd shapes; its launches
+    through CostRegNet.forward."""
+    from diffmvs_tpu_torch.nn.costreg import CostRegNet
+    from diffmvs_tpu_torch.ops import cost_prob
+    from diffmvs_tpu_torch.tools.kernel_times import (
+        prob_errors, prob_input, prob_module, time_prob)
+
+    dev, gen = run["dev"], run["gen"]
+    res = {"prob": {}}
+    time_prob(res, dev, gen)
+    for key, r in res["prob"].items():
+        dtype = torch.float32 if key.endswith("f32") else torch.bfloat16
+        check(r["route"] == "kernel" and prob_ok(r, dtype), f"prob {key}: {r}")
+        log("cost_prob_kernel", shape=key, **{
+            k: (f"{v:.4g}" if isinstance(v, float) else v)
+            for k, v in r.items() if k != "route"})
+    run["prob_rows"] = res["prob"]
+    errs = []
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        m = prob_module(dev, dt, seed=1)
+        for b, d, h, w in PROB_ODD:
+            for layout in ("channels_last", "ncdhw"):
+                x = prob_input(b, d, h, w, dt, dev, gen)
+                if layout == "ncdhw":
+                    x = x.contiguous()
+                with torch.inference_mode():
+                    r = prob_errors(cost_prob.prob_conv(x, m.weight),
+                                    m(x)[:, 0])
+                torch.cuda.synchronize()
+                check(prob_ok(r, dt), f"prob {tag}:{b}x{d}x{h}x{w}:{layout}: "
+                      f"{r}")
+            errs.append(f"{tag}:{b}x{d}x{h}x{w}={r['max_abs_err']:.1e}/"
+                        f"{r['max_ulp_err']:.2f}ulp")
+    net = CostRegNet(4, dtype=torch.bfloat16).to(dev)
+    x = torch.randn((2, 8, 12, 20, 4), device=dev, generator=gen).to(
+        torch.bfloat16).permute(0, 4, 1, 2, 3)
+    counts = []
+    for train in (False, True):
+        net.train(train)
+        before = profiling.counter(cost_prob.COUNTER)
+        with torch.no_grad():
+            net(x)
+        counts.append(profiling.counter(cost_prob.COUNTER) - before)
+    net.eval()
+    check(counts == [1, 0], f"prob launches eval / train {counts}")
+    log("cost_prob_kernel", shape="odd", max_err_abs_ulp=",".join(errs),
+        launches_eval_train=repr(counts))
+
+
 def shard_inputs(name, stage, d, s, n, hh, ww, projs, views, dev, gen):
     """(src / ref pairs of the widest baseline, depths, h, w, x_off) of
     rank 1 of 2 width shards of a map at 1/s of hh x ww: w = ww / (2 s)
@@ -758,7 +832,8 @@ def serve(run, phase, compute_dtype, gate):
     warp: mean relative depth difference below `gate`. Returns maps/s and
     the peak memory (GiB)."""
     from diffmvs_tpu_torch.api import DepthRunner
-    from diffmvs_tpu_torch.ops import feature_stem, view_weight, warp_corr
+    from diffmvs_tpu_torch.ops import (cost_prob, feature_stem, view_weight,
+                                       warp_corr)
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
 
@@ -779,6 +854,7 @@ def serve(run, phase, compute_dtype, gate):
     for imgs, pr, dv in requests:
         before = profiling.counter("warp_corr.k1")
         pvw = profiling.counter(view_weight.COUNTER)
+        prob = profiling.counter(cost_prob.COUNTER)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         depth, confs = runner(imgs, pr, dv)
@@ -789,6 +865,8 @@ def serve(run, phase, compute_dtype, gate):
         check(k1 == 28, f"{k1} launches in one request")
         check(profiling.counter(view_weight.COUNTER) - pvw == 1,
               "one PixelViewWeight kernel launch a request")
+        check(profiling.counter(cost_prob.COUNTER) - prob == 1,
+              "one CostRegNet prob kernel launch a request")
     launches = profiling.counter("warp_corr.k1")
     pvw_launches = profiling.counter(view_weight.COUNTER) - pvw0
     stem_launches = profiling.counter(feature_stem.COUNTER) - stem0
@@ -836,6 +914,7 @@ def serve(run, phase, compute_dtype, gate):
     check(rel.mean().item() < gate, f"plain vs kernel {rel.mean().item()}")
     figures["pvw_launches"] = pvw_launches
     figures["stem_launches"] = stem_launches
+    figures["prob_launches"] = len(requests)
     return by_shape, figures
 
 
@@ -871,7 +950,7 @@ def phase_main_b16(run):
 
     from diffmvs_tpu_torch.api import DepthRunner
     from diffmvs_tpu_torch.bench import infer_config
-    from diffmvs_tpu_torch.ops import feature_stem, view_weight
+    from diffmvs_tpu_torch.ops import cost_prob, feature_stem, view_weight
     from diffmvs_tpu_torch.ops.correlation import (warp_and_correlate,
                                                    warp_and_correlate_plain)
     from diffmvs_tpu_torch.utils.synthetic import synthetic_inputs
@@ -904,8 +983,12 @@ def phase_main_b16(run):
     t0 = time.time()
     pvw = profiling.counter(view_weight.COUNTER)
     stem = profiling.counter(feature_stem.COUNTER)
+    prob = profiling.counter(cost_prob.COUNTER)
     depth, confs = runner(imgs, projs, dv)
     torch.cuda.synchronize()
+    run["prob_launches_b16"] = profiling.counter(cost_prob.COUNTER) - prob
+    check(run["prob_launches_b16"] == 1,
+          f"{run['prob_launches_b16']} prob kernel launches a forward")
     run["pvw_launches_b16"] = profiling.counter(view_weight.COUNTER) - pvw
     run["stem_launches_b16"] = profiling.counter(feature_stem.COUNTER) - stem
     check(run["stem_launches_b16"] == 1,
@@ -974,7 +1057,7 @@ def train_cell(run, phase, model_cfg, gates):
     {samples_per_s, peak_gib}, the state, cfg, batch, overrides)."""
     from diffmvs_tpu_torch.config import TrainConfig
     from diffmvs_tpu_torch.models.casdiffmvs import CasDiffMVS
-    from diffmvs_tpu_torch.ops import warp_corr
+    from diffmvs_tpu_torch.ops import cost_prob, warp_corr
     from diffmvs_tpu_torch.ops.correlation import warp_and_correlate_plain
     from diffmvs_tpu_torch.train.loop import run_training
     from diffmvs_tpu_torch.train.state import create_train_state
@@ -1016,9 +1099,13 @@ def train_cell(run, phase, model_cfg, gates):
     warp_corr.reset_counts()
     torch.cuda.synchronize()
     marks.append((time.perf_counter(), 0, 0, 0.0, 0.0))
+    prob0 = profiling.counter(cost_prob.COUNTER)
     run_training(state, cfg, batches, batches[:1], str(logdir),
                  on_step=on_step)
     torch.cuda.synchronize()
+    prob_launches = profiling.counter(cost_prob.COUNTER) - prob0
+    check(prob_launches == 1, f"{prob_launches} prob kernel launches in "
+          f"{steps} training steps and one validation batch (1 wanted)")
     k2_launches = dict(profiling.keyed("warp_corr.k2"))
     k1_total = profiling.counter("warp_corr.k1")
     k2_total = profiling.counter("warp_corr.k2")
@@ -1056,9 +1143,12 @@ def train_cell(run, phase, model_cfg, gates):
     def loss_and_grads(model=state.model):
         k1 = profiling.counter("warp_corr.k1")
         k2 = profiling.counter("warp_corr.k2")
+        prob = profiling.counter(cost_prob.COUNTER)
         loss, _, outputs, _ = compute_gradients(model, cfg, batch,
                                                 train_overrides=overrides)
         torch.cuda.synchronize()
+        check(profiling.counter(cost_prob.COUNTER) == prob,
+              "no prob kernel launch in a training step")
         counts = (profiling.counter("warp_corr.k1") - k1,
                   profiling.counter("warp_corr.k2") - k2)
         return (loss.item(), flat_grads(model),
@@ -2800,7 +2890,8 @@ def main():
            "k2_rows_sp": {}, "k2_rows_sp_bf16": {}, "k3_rows": [],
            "operand_rows": []}
     for phase in (phase_jax_ckpt, phase_kernel, phase_pvw_kernel,
-                  phase_stem_kernel, phase_train_kernel,
+                  phase_stem_kernel, phase_cost_prob_kernel,
+                  phase_train_kernel,
                   phase_small, phase_main,
                   phase_main_bf16, phase_main_b16, phase_train_small,
                   phase_train, phase_train_bf16, phase_k3_kernel, phase_export,
@@ -2915,7 +3006,25 @@ def main():
             "ms": r["ms"], "card_ms": r["card_ms"], "cold_ms": r["cold_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    check(len(kernels) == 37, f"{len(kernels)} kernel rows")
+    # CostRegNet's prob kernel replaces no TPU kernel either (XLA's conv in
+    # the JAX package); launches as counted in main, main_bf16 and
+    # main_b16; the float32 row at B = 16 is timed and counts none (null)
+    prob_launches = {"b1:f32": run["main_f32"]["prob_launches"],
+                     "b1:bf16": run["main_bf16"]["prob_launches"],
+                     "b16:bf16": run["prob_launches_b16"]}
+    for key, r in run["prob_rows"].items():
+        kernels.append({
+            "name": f"cost_prob:{key}", "route": "cuda",
+            "source": "diffmvs_tpu_torch/ops/csrc/cost_prob.cu",
+            "replaces": "diffmvs_tpu/nn/costreg.py CostRegNet prob (XLA)",
+            "note": "the port's own kernel, not a TPU kernel: the 8 -> 1 "
+                    "3x3x3 conv that ends CostRegNet",
+            "launches": prob_launches.get(key),
+            "max_abs_err": r["max_abs_err"], "max_ulp_err": r["max_ulp_err"],
+            "ms": r["ms"], "card_ms": r["card_ms"], "cold_ms": r["cold_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    check(len(kernels) == 41, f"{len(kernels)} kernel rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

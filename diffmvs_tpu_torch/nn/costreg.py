@@ -3,12 +3,14 @@
 Counterpart of diffmvs_tpu/nn/costreg.py (CostRegNet, PixelViewWeight;
 plain branches). Volumes are [B, G, D, H, W].
 
-CostRegNet computes in `dtype`. PixelViewWeight always computes in
-float32, whatever the model's dtype: the JAX module passes its convs no
-dtype (nn/costreg.py, PixelViewWeight), so flax promotes them to the
-float32 of their parameters. PixelViewWeight.views weighs all source views
-at once: at inference on the card in one hand-written kernel
-(ops/view_weight.py), elsewhere with the module, view by view.
+CostRegNet computes in `dtype`; at inference on the card its last layer,
+`prob`, is one hand-written kernel (ops/cost_prob.py), elsewhere the
+module. PixelViewWeight always computes in float32, whatever the model's
+dtype: the JAX module passes its convs no dtype (nn/costreg.py,
+PixelViewWeight), so flax promotes them to the float32 of their
+parameters. PixelViewWeight.views weighs all source views at once: at
+inference on the card in one hand-written kernel (ops/view_weight.py),
+elsewhere with the module, view by view.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch.nn as nn
 
 from diffmvs_tpu_torch.nn.layers import (Conv3d, Conv3dBnAct, Deconv3dBnAct,
                                          frozen)
-from diffmvs_tpu_torch.ops import view_weight
+from diffmvs_tpu_torch.ops import cost_prob, view_weight
 
 
 class CostRegNet(nn.Module):
@@ -39,13 +41,26 @@ class CostRegNet(nn.Module):
         self.prob = Conv3d(bc, 1, 3, padding=1, bias=False, dtype=dtype)
 
     def forward(self, x):
-        """x: [B, G, D, H, W]. Returns logits [B, D, H, W]."""
+        """x: [B, G, D, H, W]. Returns logits [B, D, H, W]. On a CUDA
+        tensor where prob_fusable(x), `prob` is one launch of its kernel."""
         c1 = self.conv1(self.conv0(x))
         c3 = self.conv3(self.conv2(c1))
         c5 = self.conv5(self.conv4(c3))
         x = c3 + self.conv6(c5)
         x = c1 + self.conv7(x)
+        if x.is_cuda and self.prob_fusable(x):
+            return cost_prob.prob_conv(x, self.prob.weight)
         return self.prob(x)[:, 0]
+
+    def prob_fusable(self, x) -> bool:
+        """The prob kernel's conditions besides a CUDA tensor: `prob`
+        frozen (autograd recording nothing; eval mode), the plain Conv3d
+        (not a width shard's SpaceConv3d) and x in its compute dtype,
+        float32 or bfloat16. Training, width shards and the CPU run the
+        module."""
+        return (frozen((self.prob,), x) and type(self.prob) is Conv3d
+                and x.dtype == self.prob.compute_dtype
+                and x.dtype in (torch.float32, torch.bfloat16))
 
 
 class PixelViewWeight(nn.Module):

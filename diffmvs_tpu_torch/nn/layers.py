@@ -16,8 +16,8 @@ statistics, and rounds once to bfloat16 (flax's force_float32_reductions).
 
 Kernels: frozen() is the one rule for when a hand-written inference kernel
 (ops/) may stand in for a chain of these modules; the modules that route
-to one (nn/costreg.PixelViewWeight, nn/feature.FeatureNet) add only the
-kernel's own conditions.
+to one (nn/costreg.PixelViewWeight and CostRegNet, nn/feature.FeatureNet)
+add only the kernel's own conditions.
 
 Width sharding (parallel/spatial.py): SpaceConv2d, SpaceConv3d and
 SpaceConvTranspose3d are the convolutions' forms on a shard of the width

@@ -11,10 +11,10 @@ its symbols; launch() calls it on a device's current stream. Nothing is built or
 loaded when this module is imported, so it imports on hosts without nvcc
 or a card.
 
-A kernel module (ops/warp_corr.py, ops/view_weight.py, ops/feature_stem.py)
-checks its operands, takes their card from device(), and launches through
-function() and launch(). A new kernel is a .cu file in ops/csrc/ and such
-a module; nothing here changes.
+A kernel module (ops/warp_corr.py, ops/view_weight.py, ops/feature_stem.py,
+ops/cost_prob.py) checks its operands, takes their card from device(), and
+launches through function() and launch(). A new kernel is a .cu file in
+ops/csrc/ and such a module; nothing here changes.
 """
 
 from __future__ import annotations

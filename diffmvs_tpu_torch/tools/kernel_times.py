@@ -2,9 +2,10 @@
 shapes, K3 (with its operands and its entry, warp_corr(...,
 batch_rows=False)) at the three DTU shapes, PixelViewWeight's fused
 kernel (ops/view_weight.py) at the sweep's shape for B = 16 and B = 1,
-and FeatureNet's stem kernel (ops/feature_stem.py) over the 80 and 5
-images of B = 16 and B = 1 at 1152x1600: CUDA-event times with L2 warm
-and with L2 flushed, beside each kernel's bound.
+FeatureNet's stem kernel (ops/feature_stem.py) over the 80 and 5 images
+of B = 16 and B = 1 at 1152x1600, and CostRegNet's prob kernel
+(ops/cost_prob.py) at the sweep's shape for B = 16 and B = 1: CUDA-event
+times with L2 warm and with L2 flushed, beside each kernel's bound.
 
     python3 diffmvs_tpu_torch/tools/kernel_times.py [--root DIR] [--dtype bf16]
 
@@ -28,8 +29,12 @@ beside the module chain it replaces (conv0, conv1[0]: cuDNN's bf16
 convolutions, BatchNorm, ReLU), again its plain version and the library
 (`plain_ms`, `library_ms`), with the kernel's and the bf16 chain's max and
 mean abs error against the float32 chain; a tree without the stem kernel
-times the chain alone (`"route": "module"`). Needs CUDA; fails without
-it.
+times the chain alone (`"route": "module"`). The prob kernel is timed
+beside the module's cuDNN convolution on the same channels-last volume,
+again its plain version and the library (`plain_ms`, `library_ms`), with
+its max abs error and its largest error in bf16 ulps (`prob_errors`); a
+tree without the kernel times the convolution alone. Needs CUDA; fails
+without it.
 
 chip_smoke.py takes its timing, bounds and inputs from here too.
 """
@@ -369,6 +374,82 @@ def time_stem(res, dev, gen):
         del x
 
 
+def prob_bound(n, d, h, w, in_bytes):
+    """CostRegNet's prob convolution over n volumes [8, d, h, w]: each
+    read once and the [n, d, h, w] logits written once (in_bytes a value),
+    against 2 * 27 * 8 = 432 operations a voxel on the FP32 pipes."""
+    voxels = n * d * h * w
+    return bound(voxels * 9 * in_bytes, voxels * 2 * 27 * 8)
+
+
+# CostRegNet's prob layer at the sweep's shape: D = 48, 144x200 (1152x1600
+# at 1/8); batch sizes timed
+PROB_SHAPE = (48, 144, 200)
+PROB_BATCHES = (16, 1)
+# the bf16 check: one bf16 ulp of the module's value, or of this magnitude
+# near zero, where the two float32 sums' own difference (~1e-7) spans
+# several ulps of the value
+PROB_ULP_FLOOR = 2.0 ** -10
+
+
+def prob_module(dev, dtype=torch.bfloat16, seed=0):
+    """CostRegNet's prob layer of the tree imported (a Conv3d 8 -> 1,
+    3x3x3, padding 1, no bias, computing in dtype), in eval mode."""
+    from diffmvs_tpu_torch.nn.layers import Conv3d
+    torch.manual_seed(seed)
+    return Conv3d(8, 1, 3, padding=1, bias=False, dtype=dtype).eval().to(dev)
+
+
+def prob_input(n, d, h, w, dtype, dev, gen):
+    """The layer's input as CostRegNet hands it over: [n, 8, d, h, w] in
+    dtype with channels-last strides."""
+    return torch.randn((n, d, h, w, 8), device=dev, generator=gen).to(
+        dtype).permute(0, 4, 1, 2, 3)
+
+
+def prob_errors(got, want):
+    """{max_abs_err, max_ulp_err} of got against want (the module's
+    logits): the largest absolute difference, and the largest in bf16 ulps
+    of max(|want|, PROB_ULP_FLOOR)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    _, exp = torch.frexp(want.abs().clamp_min(PROB_ULP_FLOOR))
+    ulp = torch.ldexp(torch.ones_like(want), exp - 8)
+    return dict(max_abs_err=err.max().item(),
+                max_ulp_err=(err / ulp).max().item())
+
+
+def time_prob(res, dev, gen):
+    """CostRegNet's prob layer at PROB_SHAPE for each of PROB_BATCHES, bf16
+    and f32, into res["prob"]: the kernel's timings and errors against the
+    module, the module's ms, the bound; a tree without the kernel: the
+    module's timings."""
+    try:
+        from diffmvs_tpu_torch.ops import cost_prob
+    except ImportError:
+        cost_prob = None
+    d, h, w = PROB_SHAPE
+    for b in PROB_BATCHES:
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            m = prob_module(dev, dt)
+            x = prob_input(b, d, h, w, dt, dev, gen)
+            bound_ms, bound_by = prob_bound(b, d, h, w, x.element_size())
+            with torch.inference_mode():
+                library = timings(lambda: m(x))
+                row = dict(route="module", **library)
+                if cost_prob is not None:
+                    got = cost_prob.prob_conv(x, m.weight)
+                    row = dict(route="kernel", **timings(
+                        lambda: cost_prob.prob_conv(x, m.weight)),
+                        **prob_errors(got, m(x)[:, 0]))
+            res["prob"][f"b{b}:{tag}"] = dict(
+                **row, plain_ms=library["card_ms"],
+                library_ms=library["card_ms"],
+                library_cold_ms=library["cold_ms"],
+                bound_ms=bound_ms, bound_by=bound_by)
+            del x
+
+
 def make_depth(name, n, d, h, w, dev, gen, smooth=False):
     """Sweep planes 4..10 m, or refinement hypotheses 0.05 m apart around
     a depth of 4..10 m drawn per pixel, or with smooth=True, a depth map
@@ -474,7 +555,7 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"module": warp_corr.__file__, "smi": smi, "k2_dtype": args.dtype,
            "k1": {}, "k2": {}, "k3": {}, "k3_operands": {}, "pvw": {},
-           "stem": {}}
+           "stem": {}, "prob": {}}
     # the refinement shapes also with smooth depth maps (make_depth)
     cases = [(name, False) for name in INFER_SHAPES] + [
         (name, True) for name in INFER_SHAPES if name != "sweep"]
@@ -512,6 +593,7 @@ def main(argv=None):
     time_k3(warp_corr, res, dev, gen)
     time_pvw(res, dev, gen)
     time_stem(res, dev, gen)
+    time_prob(res, dev, gen)
     print(json.dumps(res), flush=True)
     return 0
 

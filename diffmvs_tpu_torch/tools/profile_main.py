@@ -53,6 +53,7 @@ GROUPS = (
     ("warp_corr", "warp_corr (K1, hand-written)"),
     ("pvw_conv3d", "PixelViewWeight (hand-written)"),
     ("feature_stem", "FeatureNet stem (hand-written)"),
+    ("cost_prob", "CostRegNet prob conv (hand-written)"),
     ("multi_tensor", "optimizer"),
     ("bn_bw", "normalization"),
     ("memcpy", "host-to-device copy"),

@@ -206,19 +206,19 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
 def test_kernel_module_imports_without_nvcc():
     """Importing the kernel modules builds and loads nothing: native builds
     the libraries and loads them on the first CUDA call only."""
-    code = ("from diffmvs_tpu_torch.ops import (feature_stem, native, "
-            "view_weight, warp_corr); "
+    code = ("from diffmvs_tpu_torch.ops import (cost_prob, feature_stem, "
+            "native, view_weight, warp_corr); "
             "from diffmvs_tpu_torch.utils import profiling; "
             "assert native._built is None; "
             "assert native._libs == {} and native._bound == {}; "
             "names = ('warp_corr.k1', 'warp_corr.k2', 'warp_corr.k3', "
             "'warp_corr.operands', 'warp_corr.projection', "
-            "view_weight.COUNTER, feature_stem.COUNTER, 'build.compiled', "
-            "'build.found'); "
+            "view_weight.COUNTER, feature_stem.COUNTER, cost_prob.COUNTER, "
+            "'build.compiled', 'build.found'); "
             "assert all(profiling.counter(n) == 0 for n in names); "
             "srcs = native.sources(); "
-            "assert {'feature_stem', 'pixel_view_weight', 'warp_corr', "
-            "'warp_corr_bwd', 'warp_corr_pre'} <= set(srcs); "
+            "assert {'cost_prob', 'feature_stem', 'pixel_view_weight', "
+            "'warp_corr', 'warp_corr_bwd', 'warp_corr_pre'} <= set(srcs); "
             "assert all(p.is_file() for p in "
             "(*srcs.values(), *native.headers())); "
             "assert 'warp_geom.cuh' in [p.name for p in native.headers()]")
